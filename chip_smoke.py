@@ -1,0 +1,425 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``esa_pose_estimation_tpu_torch/csrc``,
+holds each against its plain PyTorch version on the card, drives the
+serving path (``pipeline.infer_poses``) at full width on the shipped r5
+artifact through the kernels, checks the poses against the synthetic
+ground truth, and times the path.  Phases:
+
+  1. device      the card's name and power limit (nvidia-smi)
+  2. build       nvcc of every kernel source, in parallel
+  3. K1          peak decode vs its plain version, (64, 128, 128, 30)
+  4. K2          fused CBAM vs its plain version, the five hrnet_esa map
+                 shapes at batch 64, with and without residual
+  5. serving     64 synthetic frames -> infer_poses, SPEED score (median
+                 must be <= 0.01), launch counts; again with FUSED_CBAM
+  6. throughput  images/s of infer_poses at batch 1 and 256, K2 off and on
+  7. profile     one batch-256 call under torch.profiler: time per stage,
+                 kernel time, the device's idle share
+
+Any failed check raises, so the exit code is non-zero and the final line
+is not printed.  The line before the last is a JSON record of each kernel
+(launches on the serving path, error against its plain version, times,
+bound); the last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+F32_OPS_PER_S = 67e12              # H100 SXM f32 outside the tensor cores
+ROOT = Path(__file__).resolve().parent
+ARTIFACT = str(ROOT / 'artifacts' / 'esa_syn_r5.npz')
+SEED = 20261016
+DEVICE = 'cuda'
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, inputs: list, iters: int = 20, warmup: int = 3) -> float:
+    """Mean ms per call of ``fn(*inputs[i % len(inputs)])`` by CUDA events;
+    cycling several input copies keeps the working set above the L2."""
+    for i in range(warmup):
+        fn(*inputs[i % len(inputs)])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*inputs[i % len(inputs)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def paired_ms(kernel_fn, plain_fn, inputs: list) -> tuple[float, float]:
+    """(kernel ms, plain ms), timed in turns plain, kernel, kernel, plain
+    and averaged, so a drift of the card's clocks hits both alike."""
+    p1 = cuda_ms(plain_fn, inputs)
+    k1 = cuda_ms(kernel_fn, inputs)
+    k2 = cuda_ms(kernel_fn, inputs)
+    p2 = cuda_ms(plain_fn, inputs)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def copies_for(nbytes: int) -> int:
+    return max(1, math.ceil(160e6 / max(nbytes, 1)))
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def phase_device() -> str:
+    if not torch.cuda.is_available():
+        raise RuntimeError('chip_smoke.py needs a CUDA device; none found')
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'],
+        capture_output=True, text=True, timeout=60, check=True)
+    line = smi.stdout.strip().splitlines()[0]
+    log(line)                       # name, power limit: as nvidia-smi says
+    log(f'torch {torch.__version__} cuda {torch.version.cuda} '
+        f'device {torch.cuda.get_device_name(0)} '
+        f'count {torch.cuda.device_count()}')
+    return line
+
+
+def import_port() -> None:
+    """Import the port from the checkout this script sits in, and refuse
+    any other copy (an installed one, or none: the script alone fails)."""
+    sys.path.insert(0, str(ROOT))
+    import esa_pose_estimation_tpu_torch as port
+    where = Path(port.__file__).resolve().parent.parent
+    if where != ROOT:
+        raise RuntimeError(f'the port was imported from {where}, not from '
+                           f'the checkout {ROOT}')
+
+
+def phase_build() -> None:
+    from esa_pose_estimation_tpu_torch import _build
+    secs = _build.build_all()
+    log(f'build: {secs:.1f} s (nvcc, {len(list(_build.CSRC.glob("*.cu")))} '
+        f'sources in parallel)')
+
+
+def gaussian_maps(gen: torch.Generator, b: int, s: int, k: int
+                  ) -> torch.Tensor:
+    """(B, S, S, K) channels-last Gaussian heatmaps, sigma 2."""
+    dev = DEVICE
+    kp = torch.rand((b, k, 2), generator=gen, device=dev) * (s - 4) + 2
+    ax = torch.arange(s, dtype=torch.float32, device=dev)
+    dx = (ax[None, None, :] - kp[..., 0:1]) ** 2            # (B, K, S)
+    dy = (ax[None, None, :] - kp[..., 1:2]) ** 2
+    hm = torch.exp(-(dy[..., :, None] + dx[..., None, :]) / 8.0)
+    return hm.permute(0, 2, 3, 1).contiguous()              # (B, S, S, K)
+
+
+def phase_k1() -> dict:
+    from esa_pose_estimation_tpu_torch.ops import peak
+    from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
+        peak_decode,
+    )
+    b, s, k = 64, 128, 30
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    cases = {'gaussian': gaussian_maps(gen, b, s, k),
+             'noise': torch.rand((b, s, s, k), generator=gen, device=DEVICE)}
+    max_err = 0.0
+    for name, hm in cases.items():
+        c_k, m_k, p_k = peak_decode(hm, return_peaks=True)
+        torch.cuda.synchronize()
+        c_p, m_p = peak.decode_heatmaps(hm.permute(0, 3, 1, 2))
+        ipk, _ = peak.argmax_peaks(hm.permute(0, 3, 1, 2))
+        p_p = (ipk[..., 1] * s + ipk[..., 0]).to(torch.int32)
+        if not torch.equal(p_k, p_p):
+            raise AssertionError(f'K1 {name}: integer peaks differ')
+        if not torch.equal(m_k, m_p):
+            raise AssertionError(f'K1 {name}: maxvals differ')
+        err = float((c_k - c_p).abs().max())
+        if err > 1e-4:
+            raise AssertionError(f'K1 {name}: coords differ by {err}')
+        max_err = max(max_err, err)
+        log(f'K1 {name} {tuple(hm.shape)}: integer peaks and maxvals equal, '
+            f'coords max abs err {err:.3g} (tolerance 1e-4)')
+    hm = cases['gaussian']
+    bufs = [(hm.clone(),) for _ in range(copies_for(hm.numel() * 4))]
+    ms, plain_ms = paired_ms(
+        peak_decode, lambda x: peak.decode_heatmaps(x.permute(0, 3, 1, 2)),
+        bufs)
+    nbytes = hm.numel() * 4 + b * k * 3 * 4
+    b_ms, b_by = bound(nbytes, 2.0 * hm.numel())
+    log(f'K1 time (64,128,128,30): kernel {ms:.4f} ms, plain {plain_ms:.4f} '
+        f'ms, bound {b_ms:.4f} ms ({b_by})')
+    return {'name': 'peak_decode', 'route': 'cuda',
+            'source': 'esa_pose_estimation_tpu_torch/csrc/peak_decode.cu',
+            'replaces': 'esa_pose_estimation_tpu/ops/pallas/peak_decode.py:75',
+            'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None}
+
+
+# hrnet_esa's CBAM sites in one forward: (H, W, C, residual, count)
+CBAM_SITES = ((64, 64, 32, True, 10), (32, 32, 64, True, 8),
+              (16, 16, 128, True, 6), (8, 8, 256, True, 4),
+              (128, 128, 64, False, 1))
+
+
+def phase_k2() -> dict:
+    from esa_pose_estimation_tpu_torch.experimental.cbam_fuse import (
+        cbam_plain,
+        fused_cbam,
+    )
+    b = 64
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    max_err = 0.0
+    tot = {'ms': 0.0, 'plain_ms': 0.0, 'bytes': 0.0, 'ops': 0.0}
+    for h, w, c, serving_res, count in CBAM_SITES:
+        hid = c // 16
+        x = torch.randn((b, h, w, c), generator=gen, device=DEVICE
+                        ).to(torch.bfloat16)
+        res = torch.randn((b, h, w, c), generator=gen, device=DEVICE
+                          ).to(torch.bfloat16)
+        fc1 = 0.3 * torch.randn((c, hid), generator=gen, device=DEVICE)
+        fc2 = 0.3 * torch.randn((hid, c), generator=gen, device=DEVICE)
+        spw = 0.2 * torch.randn((7, 7, 2), generator=gen, device=DEVICE)
+        for r in (res, None):
+            got = fused_cbam(x, fc1, fc2, spw, r).float()
+            torch.cuda.synchronize()
+            want = cbam_plain(x, fc1, fc2, spw, r).float()
+            # both round an f32 result to bf16; sums taken in another order
+            # can land on either side of a rounding boundary: one bf16 step
+            # (<= 2^-7 |want|), plus f32 noise near zero
+            excess = ((got - want).abs()
+                      - (2.0 ** -7 * want.abs() + 1e-4)).max()
+            err = float((got - want).abs().max())
+            if not bool(torch.isfinite(got).all()) or float(excess) > 0:
+                raise AssertionError(
+                    f'K2 {h}x{w}x{c} res={r is not None}: max abs err {err}')
+            max_err = max(max_err, err)
+            log(f'K2 {b}x{h}x{w}x{c} residual={r is not None}: max abs err '
+                f'{err:.4g} (tolerance 2^-7|plain| + 1e-4)')
+        r = res if serving_res else None
+        args = (x, fc1, fc2, spw, r)
+        bufs = [tuple(a.clone() if a is not None else None for a in args)
+                for _ in range(copies_for(x.numel() * 2 * (3 if r is not None
+                                                           else 2)))]
+        ms, plain_ms = paired_ms(fused_cbam, cbam_plain, bufs)
+        n = x.numel()
+        nbytes = n * 2 * (3 if r is not None else 2) + (2 * c * hid + 98) * 4
+        ops = n * (8 if r is not None else 6) + b * h * w * 200 + b * 4 * c * hid
+        b_ms, b_by = bound(nbytes, ops)
+        log(f'K2 time {b}x{h}x{w}x{c} residual={r is not None} (x{count} per '
+            f'forward): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+            f'{b_ms:.4f} ms ({b_by})')
+        tot['ms'] += count * ms
+        tot['plain_ms'] += count * plain_ms
+        tot['bytes'] += count * nbytes
+        tot['ops'] += count * ops
+    b_ms, b_by = bound(tot['bytes'], tot['ops'])
+    log(f'K2 time per forward (29 sites, batch 64): kernel {tot["ms"]:.3f} '
+        f'ms, plain {tot["plain_ms"]:.3f} ms, bound {b_ms:.3f} ms ({b_by})')
+    return {'name': 'fused_cbam', 'route': 'cuda',
+            'source': 'esa_pose_estimation_tpu_torch/csrc/cbam_fuse.cu',
+            'replaces': 'esa_pose_estimation_tpu/experimental/cbam_fuse.py:92',
+            'max_abs_err': max_err, 'ms': tot['ms'],
+            'plain_ms': tot['plain_ms'], 'bound_ms': b_ms, 'bound_by': b_by,
+            'library_ms': None}
+
+
+def _angles(Ra: torch.Tensor, Rb: torch.Tensor) -> torch.Tensor:
+    c = ((Ra * Rb).sum((-2, -1)) - 1.0) / 2.0
+    return torch.arccos(torch.clamp(c, -1.0, 1.0))
+
+
+def phase_serving(model, pts) -> tuple[int, int]:
+    from esa_pose_estimation_tpu_torch import pipeline
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.eval.speed_score import (
+        speed_score_from_matrices,
+    )
+    from esa_pose_estimation_tpu_torch.experimental.cbam_fuse import (
+        fused_cbam,
+    )
+    from esa_pose_estimation_tpu_torch.models import layers
+    from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
+        peak_decode,
+    )
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    s = synthetic.make_sample(gen, pts, 64)
+    # the held-out evaluation's solver settings (cli/eval_synthetic)
+    kw = dict(min_keypoints=0, n_hypotheses=64)
+
+    def run(fused: bool):
+        layers.FUSED_CBAM = fused
+        try:
+            peak_decode.launches = 0
+            fused_cbam.launches = 0
+            out = pipeline.infer_poses(
+                model, s.image, s.bbox, pts,
+                torch.Generator(device=DEVICE).manual_seed(SEED + 3), **kw)
+            torch.cuda.synchronize()
+            return out, peak_decode.launches, fused_cbam.launches
+        finally:
+            layers.FUSED_CBAM = False
+
+    out, k1, k2 = run(False)
+    if k1 != 1 or k2 != 0:
+        raise AssertionError(f'serving: K1 launches {k1}, K2 {k2} '
+                             '(expected 1 and 0)')
+    if not (bool(torch.isfinite(out.R).all())
+            and bool(torch.isfinite(out.trans).all())):
+        raise AssertionError('serving: non-finite pose')
+    sc = speed_score_from_matrices(out.R, out.trans, s.quat, s.trans).speed
+    sc = sc.cpu().tolist()
+    med, mean, worst = statistics.median(sc), statistics.fmean(sc), max(sc)
+    log(f'serving: {len(sc)} frames, K1 launches {k1}, SPEED median {med:.5f} mean '
+        f'{mean:.5f} worst {worst:.5f} (median limit 0.01)')
+    if not med <= 0.01:
+        raise AssertionError(f'serving: SPEED median {med} > 0.01')
+
+    out2, k1b, k2b = run(True)
+    if k1b != 1 or k2b != 29:
+        raise AssertionError(f'serving with FUSED_CBAM: K1 launches {k1b}, '
+                             f'K2 {k2b} (expected 1 and 29)')
+    if not bool(torch.isfinite(out2.R).all()):
+        raise AssertionError('serving with FUSED_CBAM: non-finite pose')
+    ang = _angles(out.R, out2.R)
+    dt = ((out.trans - out2.trans).norm(dim=-1)
+          / out.trans.norm(dim=-1))
+    sc2 = speed_score_from_matrices(out2.R, out2.trans, s.quat,
+                                    s.trans).speed.cpu().tolist()
+    hm_diff = float((out.heatmaps - out2.heatmaps).abs().max())
+    log(f'serving FUSED_CBAM: K1 launches {k1b}, K2 launches {k2b} (29 per '
+        f'forward); heatmaps moved max {hm_diff:.4g}; poses moved median '
+        f'{float(ang.median()):.3g} rad / max {float(ang.max()):.3g} rad, '
+        f'translation rel max {float(dt.max()):.3g}; SPEED median '
+        f'{statistics.median(sc2):.5f}')
+    return k1, k2b
+
+
+def phase_throughput(model, pts) -> None:
+    from esa_pose_estimation_tpu_torch import pipeline
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.models import layers
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    s = synthetic.make_sample(gen, pts, 256, render=False)
+    # the frames of one rendered sample batch of 16, tiled to 256 (render
+    # time is set-up, not serving)
+    frames16 = synthetic.render_frame(s.keypoints_2d[:16])
+    frames = frames16.repeat(16, 1, 1)
+    boxes = s.bbox[:16].repeat(16, 1)
+    rgen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    for fused in (False, True):
+        layers.FUSED_CBAM = fused
+        try:
+            for batch, iters in ((1, 10), (256, 5)):
+                f, bx = frames[:batch].contiguous(), boxes[:batch].contiguous()
+                for _ in range(2):
+                    pipeline.infer_poses(model, f, bx, pts, rgen)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    pipeline.infer_poses(model, f, bx, pts, rgen)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                log(f'throughput: batch {batch} FUSED_CBAM={fused}: '
+                    f'{batch * iters / dt:.1f} img/s '
+                    f'({dt / iters * 1e3:.1f} ms per call)')
+        finally:
+            layers.FUSED_CBAM = False
+    phase_profile(model, pts, frames, boxes, rgen)
+
+
+STAGES = ('crop', 'hrnet', 'decode', 'ransac_epnp', 'refine')
+
+
+def phase_profile(model, pts, frames, boxes, rgen) -> None:
+    """One batch-256 ``infer_poses`` (FUSED_CBAM off) under torch.profiler:
+    per stage (the pipeline's record_function ranges) its host time, the
+    span of its device work and the kernel time inside that span; for the
+    call, kernel time over wall time.  The profiler's own host cost slows
+    the call, so the idle share here is an upper bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from esa_pose_estimation_tpu_torch import pipeline
+    pipeline.infer_poses(model, frames, boxes, pts, rgen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipeline.infer_poses(model, frames, boxes, pts, rgen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in dev if e.name not in STAGES]
+    if not kernels:
+        log('profile: the profiler recorded no device time (not measured)')
+        return
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    log(f'profile batch 256: wall {wall_ms:.1f} ms under the profiler, '
+        f'{len(kernels)} kernels, {busy_ms:.1f} ms of kernel time, device '
+        f'idle share {1 - busy_ms / wall_ms:.3f}')
+    for name in STAGES:
+        host = sum(e.time_range.elapsed_us() for e in events
+                   if e.name == name and e.device_type == DeviceType.CPU)
+        spans = [e.time_range for e in dev if e.name == name]
+        lo = min((r.start for r in spans), default=0.0)
+        hi = max((r.end for r in spans), default=0.0)
+        inside = [e for e in kernels if lo <= e.time_range.start < hi]
+        k_ms = sum(e.time_range.elapsed_us() for e in inside) / 1e3
+        log(f'profile stage {name}: host {host / 1e3:.2f} ms, device span '
+            f'{(hi - lo) / 1e3:.2f} ms, kernels {k_ms:.2f} ms in '
+            f'{len(inside)} launches')
+    by_name: dict[str, list[float]] = {}
+    for e in kernels:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]
+    for name, times in top:
+        log(f'profile kernel {sum(times) / 1e3:8.2f} ms {len(times):5d}x '
+            f'{name[:90]}')
+
+
+def main() -> None:
+    t_start = time.perf_counter()
+    phase_device()
+    import_port()
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.utils.artifact import (
+        load_hrnet_artifact,
+    )
+    phase_build()
+    k1 = phase_k1()
+    k2 = phase_k2()
+    model = load_hrnet_artifact(ARTIFACT, dtype=torch.bfloat16, device=DEVICE)
+    pts = synthetic.spacecraft_points(device=DEVICE)
+    k1['launches'], k2['launches'] = phase_serving(model, pts)
+    phase_throughput(model, pts)
+    log(f'total: {time.perf_counter() - t_start:.1f} s')
+    keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
+            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
+    print(json.dumps({'kernels': [{k: rec[k] for k in keys}
+                                  for rec in (k1, k2)]}))
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+
+
+if __name__ == '__main__':
+    main()
