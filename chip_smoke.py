@@ -19,10 +19,21 @@ ground truth, and times the path.  Phases:
   6. throughput  images/s of infer_poses at batch 1 and 256, K2 off and on
   7. profile     one batch-256 call under torch.profiler: time per stage,
                  kernel time, the device's idle share
+  8. K3          branch chain vs its plain version at (256, 64, 64, 32)
+                 bf16 k=4, (4, 16, 16, 32) f32 k=3 and zero input; times
+                 beside the cuDNN chain; then its main path,
+                 cli.mfu_experiments.chain_experiment() at batch 256
+  9. levers      the 64 frames of phase 5 again with MERGED_FUSE, then
+                 NHWC_DECODE, then INT8_SERVING on: change of heatmaps
+                 and poses, SPEED median; the lever's stage (forward or
+                 decode) timed on and off
+ 10. eval        cli.eval_synthetic on 128 held-out frames, plain (median
+                 must be <= 0.01) and with --int8
 
 Any failed check raises, so the exit code is non-zero and the final line
 is not printed.  The line before the last is a JSON record of each kernel
-(launches on the serving path, error against its plain version, times,
+(launches on its main path: the serving call for K1 and K2, the
+branch-chain experiment for K3; error against its plain version, times,
 bound); the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -40,6 +51,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 F32_OPS_PER_S = 67e12              # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
 ROOT = Path(__file__).resolve().parent
 ARTIFACT = str(ROOT / 'artifacts' / 'esa_syn_r5.npz')
 SEED = 20261016
@@ -50,39 +62,14 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, inputs: list, iters: int = 20, warmup: int = 3) -> float:
-    """Mean ms per call of ``fn(*inputs[i % len(inputs)])`` by CUDA events;
-    cycling several input copies keeps the working set above the L2."""
-    for i in range(warmup):
-        fn(*inputs[i % len(inputs)])
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fn(*inputs[i % len(inputs)])
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def paired_ms(kernel_fn, plain_fn, inputs: list) -> tuple[float, float]:
-    """(kernel ms, plain ms), timed in turns plain, kernel, kernel, plain
-    and averaged, so a drift of the card's clocks hits both alike."""
-    p1 = cuda_ms(plain_fn, inputs)
-    k1 = cuda_ms(kernel_fn, inputs)
-    k2 = cuda_ms(kernel_fn, inputs)
-    p2 = cuda_ms(plain_fn, inputs)
-    return (k1 + k2) / 2, (p1 + p2) / 2
-
-
 def copies_for(nbytes: int) -> int:
     return max(1, math.ceil(160e6 / max(nbytes, 1)))
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S
+          ) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
@@ -136,6 +123,7 @@ def phase_k1() -> dict:
     from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
         peak_decode,
     )
+    from esa_pose_estimation_tpu_torch.utils.timing import paired_ms
     b, s, k = 64, 128, 30
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     cases = {'gaussian': gaussian_maps(gen, b, s, k),
@@ -184,6 +172,7 @@ def phase_k2() -> dict:
         cbam_plain,
         fused_cbam,
     )
+    from esa_pose_estimation_tpu_torch.utils.timing import paired_ms
     b = 64
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     max_err = 0.0
@@ -246,8 +235,22 @@ def _angles(Ra: torch.Tensor, Rb: torch.Tensor) -> torch.Tensor:
     return torch.arccos(torch.clamp(c, -1.0, 1.0))
 
 
-def phase_serving(model, pts) -> tuple[int, int]:
+# the held-out evaluation's solver settings (cli/eval_synthetic)
+SERVE_KW = dict(min_keypoints=0, n_hypotheses=64)
+
+
+def serve(model, s, pts):
+    """infer_poses on the frames of sample ``s``, RANSAC drawn from a fixed
+    seed, so two runs differ only by what a flag changes."""
     from esa_pose_estimation_tpu_torch import pipeline
+    return pipeline.infer_poses(
+        model, s.image, s.bbox, pts,
+        torch.Generator(device=DEVICE).manual_seed(SEED + 3), **SERVE_KW)
+
+
+def phase_serving(model, pts):
+    """Returns the K1 and K2 launches, the 64 frames and the plain run's
+    output (phase 9 serves the same frames)."""
     from esa_pose_estimation_tpu_torch.data import synthetic
     from esa_pose_estimation_tpu_torch.eval.speed_score import (
         speed_score_from_matrices,
@@ -261,17 +264,13 @@ def phase_serving(model, pts) -> tuple[int, int]:
     )
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
     s = synthetic.make_sample(gen, pts, 64)
-    # the held-out evaluation's solver settings (cli/eval_synthetic)
-    kw = dict(min_keypoints=0, n_hypotheses=64)
 
     def run(fused: bool):
         layers.FUSED_CBAM = fused
         try:
             peak_decode.launches = 0
             fused_cbam.launches = 0
-            out = pipeline.infer_poses(
-                model, s.image, s.bbox, pts,
-                torch.Generator(device=DEVICE).manual_seed(SEED + 3), **kw)
+            out = serve(model, s, pts)
             torch.cuda.synchronize()
             return out, peak_decode.launches, fused_cbam.launches
         finally:
@@ -309,7 +308,7 @@ def phase_serving(model, pts) -> tuple[int, int]:
         f'{float(ang.median()):.3g} rad / max {float(ang.max()):.3g} rad, '
         f'translation rel max {float(dt.max()):.3g}; SPEED median '
         f'{statistics.median(sc2):.5f}')
-    return k1, k2b
+    return k1, k2b, s, out
 
 
 def phase_throughput(model, pts) -> None:
@@ -396,6 +395,156 @@ def phase_profile(model, pts, frames, boxes, rgen) -> None:
             f'{name[:90]}')
 
 
+def phase_k3() -> dict:
+    """K3 against its plain version, its times beside the cuDNN chain, and
+    its main path: the branch-chain experiment at batch 256."""
+    from esa_pose_estimation_tpu_torch.cli import mfu_experiments
+    from esa_pose_estimation_tpu_torch.experimental import branch_chain as bc
+    from esa_pose_estimation_tpu_torch.utils.timing import cuda_ms, paired_ms
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    # (label, shape, k, dtype, rtol, atol, zero input): JAX's tolerances
+    # (tests/test_branch_chain.py)
+    cases = (('bf16', (256, 64, 64, 32), 4, torch.bfloat16, 0.05, 0.05,
+              False),
+             ('f32', (4, 16, 16, 32), 3, torch.float32, 1e-4, 1e-5, False),
+             ('f32 zero input', (2, 8, 8, 32), 2, torch.float32, 1e-5, 1e-6,
+              True))
+    max_err = 0.0
+    main_args = None
+    for label, shape, k, dt, rtol, atol, zero in cases:
+        w, b = bc.make_test_chain(gen, k=k, device=DEVICE)
+        x = (torch.zeros(shape, device=DEVICE, dtype=dt) if zero else
+             (0.5 * torch.randn(shape, generator=gen, device=DEVICE)).to(dt))
+        got = bc.branch_chain(x, w, b).float()
+        torch.cuda.synchronize()
+        want = bc.branch_chain_plain(x, w, b).float()
+        err = float((got - want).abs().max())
+        if (not bool(torch.isfinite(got).all())
+                or not torch.allclose(got, want, rtol=rtol, atol=atol)):
+            raise AssertionError(f'K3 {label} {shape} k={k}: max abs err '
+                                 f'{err}')
+        if zero and float(want.abs().max()) == 0.0:
+            raise AssertionError('K3 zero input: the chain did not fire')
+        max_err = max(max_err, err)
+        log(f'K3 {label} {shape} k={k}: max abs err {err:.4g} (rtol {rtol}, '
+            f'atol {atol})')
+        if main_args is None:
+            main_args = (x, w, b)
+    x, w, b = main_args
+    bsz, h, wd, c = x.shape
+    k = w.shape[0]
+    ms, plain_ms = paired_ms(bc.branch_chain, bc.branch_chain_plain,
+                             [main_args])
+    w_lib = w.permute(0, 1, 5, 4, 2, 3).to(torch.bfloat16).contiguous()
+    lib_ms = cuda_ms(mfu_experiments.library_chain,
+                     [(x.permute(0, 3, 1, 2), w_lib, b.to(torch.bfloat16))])
+    nbytes = 2 * x.numel() * 2 + w.numel() * 2 + b.numel() * 4
+    ops = 2.0 * k * (h * wd * 9 * c * c * 2) * bsz
+    b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
+    log(f'K3 time {tuple(x.shape)} bf16 k={k}: kernel {ms:.4f} ms, plain '
+        f'{plain_ms:.4f} ms, cuDNN chain {lib_ms:.4f} ms, bound {b_ms:.4f} '
+        f'ms ({b_by}, bf16 tensor cores); {ops / (ms * 1e-3) / 1e12:.1f} '
+        f'TFLOP/s')
+    bc.branch_chain.launches = 0
+    mfu_experiments.chain_experiment(batches=(256,))
+    launches = bc.branch_chain.launches
+    if launches == 0:
+        raise AssertionError('K3: chain_experiment launched no kernel')
+    log(f'K3 main path chain_experiment(batch 256): {launches} launches; '
+        f'phase {time.perf_counter() - t0:.1f} s')
+    return {'name': 'branch_chain', 'route': 'cuda',
+            'source': 'esa_pose_estimation_tpu_torch/csrc/branch_chain.cu',
+            'replaces':
+                'esa_pose_estimation_tpu/experimental/branch_chain.py:108',
+            'launches': launches, 'max_abs_err': max_err, 'ms': ms,
+            'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
+            'library_ms': lib_ms}
+
+
+def _with_flag(owner, flag: str, value: bool, fn, *args):
+    setattr(owner, flag, value)
+    try:
+        with torch.no_grad():
+            return fn(*args)
+    finally:
+        setattr(owner, flag, False)
+
+
+def phase_levers(model, pts, s, base) -> None:
+    """The frames of phase 5 with each experimental lever on in turn.
+    MERGED_FUSE and NHWC_DECODE are exact rewrites: the heatmaps may move
+    by bf16 rounding only (rtol/atol 0.05) and the median stays <= 0.01.
+    INT8_SERVING is reported; a non-finite pose fails.  Each lever's stage
+    (the forward of the frames' crops, or the decode) is timed on and off
+    in turns."""
+    from esa_pose_estimation_tpu_torch.eval.speed_score import (
+        speed_score_from_matrices,
+    )
+    from esa_pose_estimation_tpu_torch.models import hrnet, layers
+    from esa_pose_estimation_tpu_torch.ops import crop, peak
+    from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
+        peak_decode,
+    )
+    from esa_pose_estimation_tpu_torch.utils.timing import paired_ms
+    t0 = time.perf_counter()
+    crops, _, _ = crop.crop_resize(s.image, s.bbox, 128,
+                                   img_w=s.image.shape[2],
+                                   img_h=s.image.shape[1])
+    x = crop.normalize(crops)[..., None]
+    for flag, owner, exact, stage, arg in (
+            ('MERGED_FUSE', hrnet, True, model, x),
+            ('NHWC_DECODE', peak, True, peak.decode_heatmaps_auto_nhwc,
+             base.heatmaps),
+            ('INT8_SERVING', layers, False, model, x)):
+        peak_decode.launches = 0
+        t1 = time.perf_counter()
+        out = _with_flag(owner, flag, True, serve, model, s, pts)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        launches = peak_decode.launches
+        if not (bool(torch.isfinite(out.R).all())
+                and bool(torch.isfinite(out.trans).all())):
+            raise AssertionError(f'{flag}: non-finite pose')
+        hm_diff = float((out.heatmaps - base.heatmaps).abs().max())
+        ang = _angles(base.R, out.R)
+        dt = ((base.trans - out.trans).norm(dim=-1)
+              / base.trans.norm(dim=-1))
+        med = statistics.median(speed_score_from_matrices(
+            out.R, out.trans, s.quat, s.trans).speed.cpu().tolist())
+        on_ms, off_ms = paired_ms(
+            lambda a: _with_flag(owner, flag, True, stage, a),
+            lambda a: _with_flag(owner, flag, False, stage, a), [(arg,)])
+        what = 'decode' if stage is not model else 'forward'
+        log(f'lever {flag}: heatmaps moved max {hm_diff:.4g}; poses moved '
+            f'median {float(ang.median()):.3g} rad / max '
+            f'{float(ang.max()):.3g} rad, translation rel max '
+            f'{float(dt.max()):.3g}; SPEED median {med:.5f}; K1 launches '
+            f'{launches}; {secs:.2f} s for {s.quat.shape[0]} frames; batch '
+            f'{s.quat.shape[0]} {what} {on_ms:.3f} ms on, {off_ms:.3f} ms off')
+        if exact:
+            if not torch.allclose(out.heatmaps, base.heatmaps, rtol=0.05,
+                                  atol=0.05):
+                raise AssertionError(f'{flag}: heatmaps moved {hm_diff}')
+            if not med <= 0.01:
+                raise AssertionError(f'{flag}: SPEED median {med} > 0.01')
+    log(f'levers: phase {time.perf_counter() - t0:.1f} s')
+
+
+def phase_eval() -> None:
+    """The held-out evaluation on the r5 artifact, 128 frames, plain and
+    with --int8; the plain median must be <= 0.01."""
+    from esa_pose_estimation_tpu_torch.cli import eval_synthetic
+    t0 = time.perf_counter()
+    plain = eval_synthetic.main(['--artifact', ARTIFACT])
+    int8 = eval_synthetic.main(['--artifact', ARTIFACT, '--int8'])
+    log(f'eval plain: {json.dumps(plain)}')
+    log(f'eval int8: {json.dumps(int8)}')
+    if plain['median'] is None or not plain['median'] <= 0.01:
+        raise AssertionError(f'eval: median {plain["median"]} > 0.01')
+    log(f'eval: phase {time.perf_counter() - t0:.1f} s')
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_device()
@@ -409,13 +558,16 @@ def main() -> None:
     k2 = phase_k2()
     model = load_hrnet_artifact(ARTIFACT, dtype=torch.bfloat16, device=DEVICE)
     pts = synthetic.spacecraft_points(device=DEVICE)
-    k1['launches'], k2['launches'] = phase_serving(model, pts)
+    k1['launches'], k2['launches'], frames, base = phase_serving(model, pts)
     phase_throughput(model, pts)
+    k3 = phase_k3()
+    phase_levers(model, pts, frames, base)
+    phase_eval()
     log(f'total: {time.perf_counter() - t_start:.1f} s')
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
     print(json.dumps({'kernels': [{k: rec[k] for k in keys}
-                                  for rec in (k1, k2)]}))
+                                  for rec in (k1, k2, k3)]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

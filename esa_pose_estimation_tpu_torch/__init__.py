@@ -2,8 +2,11 @@
 
 The JAX package ``esa_pose_estimation_tpu`` is the reference; this package
 reproduces its serving chain (frames -> square crop -> HRNet-W32+CBAM ->
-peak decode -> RANSAC-EPnP + dual LM) in PyTorch, with the two TPU kernels
-on that chain rewritten as CUDA C++ kernels for Hopper (``csrc/``).
+peak decode -> RANSAC-EPnP + dual LM) in PyTorch, its experimental serving
+levers (``experimental/``), the held-out evaluation and the utilization
+experiments (``cli/``).  The three TPU kernels of the JAX package (peak
+decode, fused CBAM, branch chain) are rewritten as CUDA C++ kernels for
+Hopper (``csrc/``).
 
 It imports torch and numpy only.  Public functions keep the JAX package's
 layouts (frames ``(B, H, W)``, heatmaps ``(B, S, S, K)`` channels-last), so

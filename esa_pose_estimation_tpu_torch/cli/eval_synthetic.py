@@ -1,0 +1,166 @@
+"""Held-out synthetic SPEED evaluation with per-frame score statistics.
+
+    python -m esa_pose_estimation_tpu_torch.cli.eval_synthetic \\
+        --artifact artifacts/esa_syn_r5.npz [--int8] [--device cpu]
+
+Port of the JAX package's ``cli/eval_synthetic.py``.  It scores ``--frames``
+synthetic frames through the full serving path (``pipeline.infer_poses``)
+and prints one JSON line: median / p90 / mean SPEED score, the fraction of
+frames beating the reference leaderboard score (0.0193), the worst frame
+and its depth, and the mean pixel error of the selected keypoints.
+``--int8`` serves the head conv in int8 (``models.layers.INT8_SERVING``):
+this flag is the lever's accuracy gate.
+
+The frames come from ``data/synthetic.make_sample`` with a generator seeded
+from ``--seed`` and the batch index, so the frame set is not the JAX one:
+scores compare with the JAX package's in distribution, not frame by frame.
+Only ``--artifact`` weights are read here; the checkpoint, detector and
+perturbation routes of the JAX command wait for later slices.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+REFERENCE_SCORE = 0.0193      # the reference's leaderboard score
+
+
+def summarize(scores: np.ndarray, depths: np.ndarray, pix_err_sum: float,
+              pix_err_n: int) -> dict:
+    """The JSON record of per-frame scores and depths.  Non-finite frames
+    (solver divergence) are counted and left out of every statistic; if
+    none is finite the statistics are null."""
+    finite = np.isfinite(scores)
+    n_nonfinite = int((~finite).sum())
+    scores, depths = scores[finite], depths[finite]
+    pix = round(pix_err_sum / max(pix_err_n, 1), 3)
+    if scores.size == 0:
+        return {
+            'frames': 0, 'nonfinite_frames': n_nonfinite,
+            'median': None, 'p90': None, 'mean': None,
+            'beat_reference_frac': None, 'worst': None,
+            'worst_depth_m': None, 'pix_err_px': pix,
+            'error': 'every frame produced a non-finite pose',
+        }
+    return {
+        'frames': int(len(scores)),
+        'nonfinite_frames': n_nonfinite,
+        'median': round(float(np.median(scores)), 4),
+        'p90': round(float(np.percentile(scores, 90)), 4),
+        'mean': round(float(scores.mean()), 4),
+        'beat_reference_frac': round(
+            float((scores < REFERENCE_SCORE).mean()), 3),
+        'worst': round(float(scores.max()), 3),
+        'worst_depth_m': round(float(depths[scores.argmax()]), 1),
+        'pix_err_px': pix,
+    }
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--artifact', default=None,
+                    help='inference artifact (.npz) to evaluate, e.g. '
+                         'artifacts/esa_syn_r5.npz')
+    ap.add_argument('--frames', type=int, default=128)
+    ap.add_argument('--batch-size', type=int, default=32)
+    ap.add_argument('--seed', type=int, default=991)
+    ap.add_argument('--n-hypotheses', type=int, default=64)
+    ap.add_argument('--tiny', action='store_true',
+                    help='tiny model topology (must match the artifact)')
+    ap.add_argument('--crop-size', type=int, default=128)
+    ap.add_argument('--flip-tta', action='store_true',
+                    help='average heatmaps with a mirrored-input forward '
+                         'pass; 2x forward cost')
+    ap.add_argument('--int8', action='store_true',
+                    help='serve the head conv in int8 (models/layers.py '
+                         'INT8_SERVING; experimental): this flag is the '
+                         'accuracy gate, compare scores with and without')
+    ap.add_argument('--mirror-evidence', choices=('heatmap', 'cost'),
+                    default='heatmap',
+                    help='mirror-pose disambiguation signal: reprojected-'
+                         'keypoint heatmap likelihood or LM cost alone')
+    ap.add_argument('--device', default='cuda',
+                    help="where to run: 'cuda' (default) or 'cpu'")
+    return ap
+
+
+def main(argv=None) -> dict:
+    args = _parser().parse_args(argv)
+    if not args.artifact:
+        raise SystemExit(
+            'eval_synthetic needs --artifact: the --workdir/--checkpoint '
+            '(training) and --detector-workdir (detector) routes of the JAX '
+            'command are not ported yet')
+
+    from esa_pose_estimation_tpu_torch import pipeline
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.eval.speed_score import (
+        speed_score_from_matrices,
+    )
+    from esa_pose_estimation_tpu_torch.models import layers
+    from esa_pose_estimation_tpu_torch.utils import config as cfg_mod
+    from esa_pose_estimation_tpu_torch.utils.artifact import (
+        load_hrnet_artifact,
+        read_meta,
+    )
+
+    # the artifact's recorded config against the flags: a mismatch would
+    # otherwise fail deep inside the strict weight load
+    meta = read_meta(args.artifact)
+    want_model = 'hrnet_tiny' if args.tiny else 'hrnet_esa'
+    if meta.get('model') and meta['model'] != want_model:
+        raise SystemExit(
+            f"artifact {args.artifact} was exported from {meta['model']!r} "
+            f"but the flags select {want_model!r} "
+            f"({'drop' if args.tiny else 'pass'} --tiny)")
+    if meta.get('crop_size') and meta['crop_size'] != args.crop_size:
+        raise SystemExit(f"artifact {args.artifact} expects --crop-size "
+                         f"{meta['crop_size']}, got {args.crop_size}")
+    model_cfg = cfg_mod.hrnet_tiny() if args.tiny else cfg_mod.hrnet_esa()
+    dev = torch.device(args.device)
+    model = load_hrnet_artifact(args.artifact, cfg=model_cfg,
+                                dtype=torch.bfloat16, device=dev)
+    print(f'# loaded artifact {args.artifact} ({meta})')
+    points_3d = synthetic.spacecraft_points(device=dev)
+
+    all_scores, depths = [], []
+    pix_err_sum, pix_err_n = 0.0, 0
+    n_batches = -(-args.frames // args.batch_size)
+    old_int8 = layers.INT8_SERVING
+    layers.INT8_SERVING = args.int8
+    try:
+        for i in range(n_batches):
+            gen = torch.Generator(device=dev).manual_seed(
+                args.seed * 100_003 + i)
+            s = synthetic.make_sample(gen, points_3d, args.batch_size)
+            out = pipeline.infer_poses(
+                model, s.image, s.bbox, points_3d, gen,
+                crop_size=args.crop_size, conf_threshold=0.6,
+                min_keypoints=0, n_hypotheses=args.n_hypotheses,
+                flip_tta=args.flip_tta, mirror_evidence=args.mirror_evidence)
+            sc = speed_score_from_matrices(out.R, out.trans, s.quat, s.trans)
+            all_scores.append((sc.score_t + sc.score_r).cpu().numpy())
+            depths.append(s.trans[:, 2].cpu().numpy())
+            # pixel error over the confidence-selected peaks, on exactly
+            # the --frames frames every other statistic covers
+            take = min(args.batch_size, args.frames - i * args.batch_size)
+            err = torch.linalg.vector_norm(out.keypoints_2d - s.keypoints_2d,
+                                           dim=-1)
+            m = out.selected
+            pix_err_sum += float((err * m)[:take].sum())
+            pix_err_n += int(m[:take].sum())
+    finally:
+        layers.INT8_SERVING = old_int8
+    record = summarize(np.concatenate(all_scores)[:args.frames],
+                       np.concatenate(depths)[:args.frames],
+                       pix_err_sum, pix_err_n)
+    print(json.dumps(record))
+    return record
+
+
+if __name__ == '__main__':
+    main()

@@ -1,0 +1,268 @@
+"""Utilization experiments on one NVIDIA H100.
+
+    python -m esa_pose_estimation_tpu_torch.cli.mfu_experiments [--chain |
+        --int8 | --int8-matmul]
+
+Port of the JAX package's ``scripts/mfu_experiments.py``.  Every mode times
+on the card with CUDA events and reports its share of the card's bf16
+dense tensor-core peak (989 TFLOP/s, H100 SXM) beside each time; it needs a
+CUDA device.  Modes:
+
+* default: the ``hrnet_esa`` forward (bf16) at batch 128, 256 and 512, and
+  a lane-padded variant (every stage width rounded up to 128) at 256.
+  Weights are random, drawn from a seeded generator; FLOPs are the
+  convolutions' multiply-adds, counted from the shapes.
+* ``--chain``: the branch chain of k = 4 residual blocks at 64x64x32
+  (the HRNet branch-1 shape), batch 256 and 512: the hand-written kernel
+  (``experimental/branch_chain.py``), its plain version, and the library
+  chain of 8 cuDNN bf16 channels_last convolutions.
+* ``--int8``: the head conv (3x3, 480 -> 480 at 64x64, batch 256) in bf16
+  against the int8 path of ``experimental/int8_head.py``, with and without
+  the activation quantization.
+* ``--int8-matmul``: bf16 against int8 products at the head conv's
+  contraction (the int8 one with its second operand row- and
+  column-major), and the head conv's int32 accumulator as the int8 path
+  computes it.
+
+Each mode prints one JSON line per measurement and a last line with all.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from esa_pose_estimation_tpu_torch.utils.timing import (
+    BF16_TC_FLOPS,
+    cuda_ms,
+    paired_ms,
+)
+
+N_ITERS = 10
+SEED = 0
+
+
+def _require_cuda() -> torch.device:
+    if not torch.cuda.is_available():
+        raise SystemExit('mfu_experiments measures the card: no CUDA device')
+    return torch.device('cuda')
+
+
+def _rate(flops: float, ms: float) -> dict:
+    return {'ms': ms, 'tflops': flops / (ms * 1e-3) / 1e12,
+            'mfu_vs_bf16_peak': flops / (ms * 1e-3) / BF16_TC_FLOPS}
+
+
+def init_random(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """He-normal conv weights drawn from ``generator`` (on the CPU); the
+    BatchNorms keep their unit defaults."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, nn.Conv2d):
+                fan_in = mod.weight[0].numel()
+                w = torch.randn(mod.weight.shape, generator=generator)
+                mod.weight.copy_(w * math.sqrt(2.0 / fan_in))
+                if mod.bias is not None:
+                    mod.bias.zero_()
+    return model
+
+
+def conv_flops(model: nn.Module, x: torch.Tensor) -> float:
+    """2 x the multiply-adds of every convolution of one forward of x."""
+    total = 0.0
+
+    def hook(mod, inp, out):
+        nonlocal total
+        total += 2.0 * out.numel() * mod.weight[0].numel()
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, nn.Conv2d)]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return total
+
+
+def _hrnet(cfg, dev) -> nn.Module:
+    from esa_pose_estimation_tpu_torch.models.hrnet import HRNet
+    gen = torch.Generator().manual_seed(SEED)
+    model = init_random(HRNet(cfg, dtype=torch.bfloat16), gen)
+    return model.to(device=dev, memory_format=torch.channels_last).eval()
+
+
+def time_forward(model: nn.Module, batch: int) -> dict:
+    """ms per bf16 forward of a zero (batch, 128, 128, 1) input."""
+    dev = next(model.parameters()).device
+    x = torch.zeros((batch, 128, 128, 1), device=dev)
+    flops = conv_flops(model, x[:1]) * batch
+
+    def fwd(a):
+        with torch.no_grad():
+            return model(a)
+
+    ms = cuda_ms(fwd, [(x,)], iters=N_ITERS)
+    return {'ms_per_batch': ms, 'img_per_s': batch / (ms * 1e-3),
+            'gflop_per_img': flops / batch / 1e9,
+            'mfu': flops / (ms * 1e-3) / BF16_TC_FLOPS}
+
+
+def library_chain(x: torch.Tensor, weights: torch.Tensor,
+                  biases: torch.Tensor) -> torch.Tensor:
+    """The chain as 2k cuDNN convolutions on channels_last NCHW x, OIHW
+    weights and biases in x's dtype (the conv rounds before the bias)."""
+    for i in range(weights.shape[0]):
+        h = torch.relu(F.conv2d(x, weights[i, 0], biases[i, 0], padding=1))
+        x = torch.relu(F.conv2d(h, weights[i, 1], biases[i, 1], padding=1)
+                       + x)
+    return x
+
+
+def chain_experiment(batches=(256, 512), k: int = 4) -> dict:
+    """The branch chain at 64x64x32: kernel, plain and library ms per call
+    for each batch, with their shares of the bf16 peak."""
+    from esa_pose_estimation_tpu_torch.experimental import branch_chain as bc
+    dev = _require_cuda()
+    c, hw = 32, 64
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    weights, biases = bc.make_test_chain(gen, k=k, c=c, device=dev)
+    # the library chain's operands: OIHW, in bf16
+    w_lib = weights.permute(0, 1, 5, 4, 2, 3).to(torch.bfloat16).contiguous()
+    b_lib = biases.to(torch.bfloat16)
+    flops_per_img = 2 * k * (hw * hw * 9 * c * c * 2)
+    results = {}
+    for batch in batches:
+        x = (0.5 * torch.randn((batch, hw, hw, c), generator=gen,
+                               device=dev)).to(torch.bfloat16)
+        x_lib = x.permute(0, 3, 1, 2)            # channels_last NCHW view
+        k_ms, p_ms = paired_ms(bc.branch_chain, bc.branch_chain_plain,
+                               [(x, weights, biases)])
+        l_ms = cuda_ms(library_chain, [(x_lib, w_lib, b_lib)])
+        want = bc.branch_chain_plain(x, weights, biases).float()
+        lib_diff = float((library_chain(x_lib, w_lib, b_lib)
+                          .permute(0, 2, 3, 1).float() - want).abs().max())
+        total = flops_per_img * batch
+        row = {'kernel': _rate(total, k_ms), 'plain': _rate(total, p_ms),
+               'library': _rate(total, l_ms),
+               'library_max_abs_diff': lib_diff}
+        results[f'chain_b{batch}'] = row
+        print(json.dumps({f'chain_b{batch}': row}), flush=True)
+    return results
+
+
+def int8_experiment(batch: int = 256, hw: int = 64, c: int = 480) -> dict:
+    """The head conv in bf16 (cuDNN) against the int8 path, with the
+    activation quantization and without it."""
+    from esa_pose_estimation_tpu_torch.experimental import int8_head as q
+    dev = _require_cuda()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    w = 0.05 * torch.randn((3, 3, c, c), generator=gen, device=dev)
+    x = torch.randn((batch, hw, hw, c), generator=gen, device=dev)
+    w_q, s_w = q.quantize_weights_per_channel(w)
+    x_bf = x.to(torch.bfloat16).permute(0, 3, 1, 2)   # channels_last NCHW
+    w_bf = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous()
+    x_q8, _ = q.quantize_activations(x)
+    flops = 2 * batch * hw * hw * 9 * c * c
+    out = {}
+    for name, fn, args in (
+            ('bf16', lambda a, b: F.conv2d(a, b, padding=1), (x_bf, w_bf)),
+            ('int8_with_quant', lambda a: q.int8_conv(a, w_q, s_w), (x,)),
+            ('int8_raw', q.int8_conv_acc, (x_q8, w_q))):
+        ms = min(cuda_ms(fn, [args]) for _ in range(3))
+        out[name] = _rate(flops, ms)
+        print(json.dumps({name: out[name]}), flush=True)
+    return out
+
+
+def int8_matmul_experiment() -> dict:
+    """bf16 against int8 products at the head conv's contraction (K = N =
+    480), and the head conv in int8 as one im2col product."""
+    from esa_pose_estimation_tpu_torch.experimental import int8_head as q
+    dev = _require_cuda()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    m, k, n = 65536, 480, 480
+    a = torch.randn((m, k), generator=gen, device=dev)
+    b = 0.05 * torch.randn((k, n), generator=gen, device=dev)
+    a8 = torch.clamp(torch.round(a * 20), -127, 127).to(torch.int8)
+    b8 = torch.clamp(torch.round(b * 500), -127, 127).to(torch.int8)
+    flops = 2 * m * k * n
+    out = {}
+    for name, fn, args in (
+            ('mm_bf16', torch.matmul,
+             (a.to(torch.bfloat16), b.to(torch.bfloat16))),
+            ('mm_s8', torch._int_mm, (a8, b8)),
+            # the same product with the second operand column-major
+            ('mm_s8_b_colmajor', torch._int_mm, (a8, b8.t().contiguous().t()))):
+        ms = min(cuda_ms(fn, [args]) for _ in range(3))
+        out[name] = _rate(flops, ms)
+        print(json.dumps({name: out[name]}), flush=True)
+    batch, hw, c = 256, 64, 480
+    x8 = torch.randint(-127, 128, (batch, hw, hw, c), generator=gen,
+                       device=dev, dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (3, 3, c, c), generator=gen, device=dev,
+                       dtype=torch.int8)
+    ms = min(cuda_ms(q.int8_conv_acc, [(x8, w8)]) for _ in range(3))
+    out['conv3x3_s8_im2col'] = _rate(2 * batch * hw * hw * 9 * c * c,
+                                           ms)
+    print(json.dumps({'conv3x3_s8_im2col':
+                      out['conv3x3_s8_im2col']}), flush=True)
+    return out
+
+
+def flagship_experiment() -> dict:
+    """The hrnet_esa batch sweep and the lane-padded variant at 256."""
+    from esa_pose_estimation_tpu_torch.utils import config as cfg_mod
+    dev = _require_cuda()
+    results = {}
+    flagship = _hrnet(cfg_mod.hrnet_esa(), dev)
+    for b in (128, 256, 512):
+        results[f'flagship_b{b}'] = time_forward(flagship, b)
+        print(json.dumps({f'flagship_b{b}': results[f'flagship_b{b}']}),
+              flush=True)
+    del flagship
+    base = cfg_mod.hrnet_esa()
+    pad = dataclasses.replace(
+        base, stem_channels=128,
+        stage1=dataclasses.replace(base.stage1, num_channels=(128,)),
+        stage2=dataclasses.replace(base.stage2, num_channels=(128, 128)),
+        stage3=dataclasses.replace(base.stage3,
+                                   num_channels=(128, 128, 128)),
+        stage4=dataclasses.replace(base.stage4,
+                                   num_channels=(128, 128, 128, 256)))
+    results['lane_padded_b256'] = time_forward(_hrnet(pad, dev), 256)
+    print(json.dumps({'lane_padded_b256': results['lane_padded_b256']}),
+          flush=True)
+    return results
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument('--chain', action='store_true')
+    mode.add_argument('--int8', action='store_true')
+    mode.add_argument('--int8-matmul', action='store_true')
+    args = ap.parse_args(argv)
+    _require_cuda()
+    if args.chain:
+        results = chain_experiment()
+    elif args.int8:
+        results = int8_experiment()
+    elif args.int8_matmul:
+        results = int8_matmul_experiment()
+    else:
+        results = flagship_experiment()
+    results['device'] = torch.cuda.get_device_name(0)
+    print(json.dumps(results))
+    return results
+
+
+if __name__ == '__main__':
+    main()

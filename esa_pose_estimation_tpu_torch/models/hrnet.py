@@ -10,8 +10,7 @@ CBAM-attended stem, 3x3 conv with bias -> K maps).
 :class:`HRNet` takes ``(B, H, W, in_channels)`` and returns f32
 ``(B, H, W, K)`` channels-last heatmaps, the JAX model's layout; inside it
 runs NCHW tensors in channels_last memory.  Module names follow the Flax
-auto-numbering (see ``models/layers.py``).  ``MERGED_FUSE`` (the merged
-fuse-layer experiment) is not ported.
+auto-numbering (see ``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from esa_pose_estimation_tpu_torch.experimental.merged_fuse import merged_fuse
 from esa_pose_estimation_tpu_torch.models.layers import (
     BLOCKS,
     CBAM,
@@ -50,16 +50,29 @@ class BranchBlocks(nn.Module):
         return x
 
 
+# Eval-time fuse-layer conv merging (experimental/merged_fuse.py).
+# Module-level so tests and chip_smoke.py can force either path.  Default
+# False, as in the JAX package.
+MERGED_FUSE: bool = False
+
+
 class FuseLayer(nn.Module):
     """Cross-resolution fusion (seg_hrnet3.py:219-292).  For output branch
     i and input branch j: j > i: 1x1 conv + BN then bilinear upsample;
     j == i: identity; j < i: (i-j) strided 3x3 convs (ReLU between, none
-    on the last).  Outputs relu(sum_j path_ij(x_j)) per branch."""
+    on the last).  Outputs relu(sum_j path_ij(x_j)) per branch.
+
+    With ``MERGED_FUSE`` set and the module not training, the same
+    parameters run through the merged eval program (BN folded into the
+    convs, same-source paths as one conv).
+    """
 
     def __init__(self, num_branches: int, channels: tuple[int, ...],
                  dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.num_branches = num_branches
+        self.channels = tuple(channels)
         self.paths: list[list[list[str]]] = []
         n = 0
 
@@ -89,6 +102,8 @@ class FuseLayer(nn.Module):
             self.paths.append(row)
 
     def forward(self, xs: list[torch.Tensor]) -> list[torch.Tensor]:
+        if MERGED_FUSE and not self.training:
+            return merged_fuse(self, xs, resize_bilinear)
         outs = []
         for i, row in enumerate(self.paths):
             y = None
@@ -207,8 +222,10 @@ class HRNet(nn.Module):
                 n_mod += 1
             self.stage_names.append((f'Transition_{t}', mods))
         total = sum(chans)
+        # the FLOP-dominant head conv is the one marked for the int8
+        # serving path (layers.INT8_SERVING), as in the JAX model
         self.ConvBN_1 = ConvBN(total, total, c.first_head_kernel, 1,
-                               dtype=dtype)
+                               dtype=dtype, int8_serving=True)
         self.ConvBN_2 = ConvBN(total, c.num_keypoints, c.final_conv_kernel,
                                1, dtype=dtype)
         if c.attended_stem_skip:

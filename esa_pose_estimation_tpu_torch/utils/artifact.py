@@ -46,12 +46,18 @@ def _flatten(tree, prefix: str = '') -> dict[str, np.ndarray]:
     return out
 
 
+def read_meta(path: str) -> dict:
+    """The artifact's ``meta`` dict alone (no weights are read)."""
+    with np.load(path) as z:
+        return json.loads(bytes(z['meta']).decode()) if 'meta' in z else {}
+
+
 def read_artifact(path: str) -> tuple[dict, dict]:
     """Returns ``(variables, meta)``: ``variables`` is
     ``{'params': tree, 'batch_stats': tree}`` of f32 numpy arrays, as the
     JAX package's ``load_inference_artifact`` gives them."""
+    meta = read_meta(path)
     with np.load(path) as z:
-        meta = json.loads(bytes(z['meta']).decode()) if 'meta' in z else {}
         params, stats = {}, {}
         for k in z.files:
             if k.startswith(_PARAM):

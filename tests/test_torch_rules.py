@@ -55,10 +55,14 @@ def test_spacecraft_points_equal_jax():
 
 
 def test_cpu_entry_points_never_touch_cuda(monkeypatch):
+    """infer_poses with every serving lever on, and the eval CLI, on CPU
+    tensors: no CUDA call and no kernel build."""
     from esa_pose_estimation_tpu_torch import _build
     from esa_pose_estimation_tpu_torch import pipeline
+    from esa_pose_estimation_tpu_torch.cli import eval_synthetic
     from esa_pose_estimation_tpu_torch.data import synthetic as tsyn
-    from esa_pose_estimation_tpu_torch.models import layers
+    from esa_pose_estimation_tpu_torch.models import hrnet, layers
+    from esa_pose_estimation_tpu_torch.ops import peak
     from esa_pose_estimation_tpu_torch.utils.artifact import (
         load_hrnet_artifact,
     )
@@ -71,6 +75,9 @@ def test_cpu_entry_points_never_touch_cuda(monkeypatch):
     monkeypatch.setattr(_build, 'load', refuse)
     monkeypatch.setattr(_build, 'build_all', refuse)
     monkeypatch.setattr(layers, 'FUSED_CBAM', True)
+    monkeypatch.setattr(layers, 'INT8_SERVING', True)
+    monkeypatch.setattr(hrnet, 'MERGED_FUSE', True)
+    monkeypatch.setattr(peak, 'NHWC_DECODE', True)
     model = load_hrnet_artifact('artifacts/esa_syn_r5.npz',
                                 dtype=torch.float32, device='cpu')
     gen = torch.Generator().manual_seed(0)
@@ -82,3 +89,7 @@ def test_cpu_entry_points_never_touch_cuda(monkeypatch):
                                n_hypotheses=8, lm_iters=2)
     assert out.quat.device.type == 'cpu'
     assert torch.isfinite(out.quat).all()
+    rec = eval_synthetic.main(['--artifact', 'artifacts/esa_syn_r5.npz',
+                               '--device', 'cpu', '--frames', '2',
+                               '--batch-size', '2', '--int8'])
+    assert rec['frames'] + rec['nonfinite_frames'] == 2
