@@ -19,10 +19,12 @@ ground truth, and times the path.  Phases:
   6. throughput  images/s of infer_poses at batch 1 and 256, K2 off and on
   7. profile     one batch-256 call under torch.profiler: time per stage,
                  kernel time, the device's idle share
-  8. K3          branch chain vs its plain version at (256, 64, 64, 32)
-                 bf16 k=4, (4, 16, 16, 32) f32 k=3 and zero input; times
-                 beside the cuDNN chain; then its main path,
-                 cli.mfu_experiments.chain_experiment() at batch 256
+  8. K3          branch chain vs its plain version: bf16 (tensor-core
+                 kernel) at (256, 64, 64, 32) k=4, two ragged shapes, zero
+                 input, and two exact-tap cases that must be bit-equal;
+                 f32 (FMA kernel) at (4, 16, 16, 32) k=3 and zero input;
+                 then its main path, cli.mfu_experiments.chain_experiment()
+                 at batch 256 and 512, timed beside the cuDNN chain
   9. levers      the 64 frames of phase 5 again with MERGED_FUSE, then
                  NHWC_DECODE, then INT8_SERVING on: change of heatmaps
                  and poses, SPEED median; the lever's stage (forward or
@@ -395,71 +397,156 @@ def phase_profile(model, pts, frames, boxes, rgen) -> None:
             f'{name[:90]}')
 
 
+def exact_tap_chain(gen: torch.Generator, k: int, tap: tuple[int, int]
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chain weights nonzero only at one tap (ky, kx): in every conv a
+    channel permutation times 0.5; random biases.  Each conv output is then
+    a single product, so the tensor-core kernel must equal the plain
+    version to the bit: a fault of layout, tap offset or channel packing
+    shows as a mismatch, not as noise."""
+    w = torch.zeros((k, 2, 3, 3, 32, 32), device=DEVICE)
+    cout = torch.arange(32, device=DEVICE)
+    for i in range(k):
+        for j in range(2):
+            perm = torch.randperm(32, generator=gen, device=DEVICE)
+            w[i, j, tap[0], tap[1], perm, cout] = 0.5
+    return w, 0.1 * torch.randn((k, 2, 32), generator=gen, device=DEVICE)
+
+
+def sm_clock_mhz_during(fn, args: tuple, seconds: float = 1.5
+                        ) -> float | None:
+    """Median SM clock (nvidia-smi, sampled every 100 ms) while fn(*args)
+    runs back to back for about ``seconds``; None if nvidia-smi gave no
+    reading."""
+    smi = subprocess.Popen(
+        ['nvidia-smi', '--query-gpu=clocks.sm', '--format=csv,noheader,nounits',
+         '-lms', '100'], stdout=subprocess.PIPE, text=True)
+    try:
+        t_end = time.perf_counter() + seconds
+        while time.perf_counter() < t_end:
+            for _ in range(10):
+                fn(*args)
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=30)
+    mhz = [float(v) for v in out.split() if v.isdigit()][1:]  # skip idle
+    return statistics.median(mhz) if mhz else None
+
+
 def phase_k3() -> dict:
-    """K3 against its plain version, its times beside the cuDNN chain, and
-    its main path: the branch-chain experiment at batch 256."""
+    """K3 against its plain version: bf16 through the tensor-core kernel
+    (JAX's tolerances; two exact-tap cases to the bit), f32 through the
+    FMA kernel; then its main path, the branch-chain experiment at batch
+    256 and 512, timed beside the cuDNN chain."""
     from esa_pose_estimation_tpu_torch.cli import mfu_experiments
     from esa_pose_estimation_tpu_torch.experimental import branch_chain as bc
-    from esa_pose_estimation_tpu_torch.utils.timing import cuda_ms, paired_ms
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
-    # (label, shape, k, dtype, rtol, atol, zero input): JAX's tolerances
-    # (tests/test_branch_chain.py)
-    cases = (('bf16', (256, 64, 64, 32), 4, torch.bfloat16, 0.05, 0.05,
-              False),
-             ('f32', (4, 16, 16, 32), 3, torch.float32, 1e-4, 1e-5, False),
-             ('f32 zero input', (2, 8, 8, 32), 2, torch.float32, 1e-5, 1e-6,
-              True))
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (label, shape, k, dtype, rtol, atol, weights): rtol/atol are JAX's
+    # (tests/test_branch_chain.py); weights 'random', 'zero input' (random
+    # weights on x = 0) or an exact tap (ky, kx), which must be bit-equal
+    cases = (('bf16', (256, 64, 64, 32), 4, bf16, 0.05, 0.05, 'random'),
+             ('bf16 ragged', (3, 40, 72, 32), 2, bf16, 0.05, 0.05, 'random'),
+             ('bf16 ragged', (1, 8, 8, 32), 1, bf16, 0.05, 0.05, 'random'),
+             ('bf16 zero input', (2, 8, 8, 32), 2, bf16, 0.05, 0.05,
+              'zero input'),
+             ('bf16 centre tap', (3, 40, 72, 32), 2, bf16, 0, 0, (1, 1)),
+             ('bf16 tap (0, 2)', (3, 40, 72, 32), 2, bf16, 0, 0, (0, 2)),
+             ('f32', (4, 16, 16, 32), 3, f32, 1e-4, 1e-5, 'random'),
+             ('f32 zero input', (2, 8, 8, 32), 2, f32, 1e-5, 1e-6,
+              'zero input'))
     max_err = 0.0
-    main_args = None
-    for label, shape, k, dt, rtol, atol, zero in cases:
-        w, b = bc.make_test_chain(gen, k=k, device=DEVICE)
-        x = (torch.zeros(shape, device=DEVICE, dtype=dt) if zero else
+    for label, shape, k, dt, rtol, atol, kind in cases:
+        if isinstance(kind, tuple):
+            w, b = exact_tap_chain(gen, k, kind)
+        else:
+            w, b = bc.make_test_chain(gen, k=k, device=DEVICE)
+        x = (torch.zeros(shape, device=DEVICE, dtype=dt)
+             if kind == 'zero input' else
              (0.5 * torch.randn(shape, generator=gen, device=DEVICE)).to(dt))
-        got = bc.branch_chain(x, w, b).float()
+        got = bc.branch_chain(x, w, b)
         torch.cuda.synchronize()
-        want = bc.branch_chain_plain(x, w, b).float()
-        err = float((got - want).abs().max())
-        if (not bool(torch.isfinite(got).all())
-                or not torch.allclose(got, want, rtol=rtol, atol=atol)):
-            raise AssertionError(f'K3 {label} {shape} k={k}: max abs err '
-                                 f'{err}')
-        if zero and float(want.abs().max()) == 0.0:
+        want = bc.branch_chain_plain(x, w, b)
+        err = float((got.float() - want.float()).abs().max())
+        ok = (torch.equal(got, want) if isinstance(kind, tuple) else
+              bool(torch.isfinite(got).all())
+              and torch.allclose(got.float(), want.float(), rtol=rtol,
+                                 atol=atol))
+        if not ok:
+            bad = (got.float() - want.float()).abs() > atol + rtol * \
+                want.float().abs()
+            raise AssertionError(
+                f'K3 {label} {shape} k={k}: max abs err {err}, '
+                f'{int(bad.sum())} of {bad.numel()} values off, first at '
+                f'{bad.nonzero()[:4].tolist()}')
+        if kind == 'zero input' and float(want.abs().max()) == 0.0:
             raise AssertionError('K3 zero input: the chain did not fire')
         max_err = max(max_err, err)
-        log(f'K3 {label} {shape} k={k}: max abs err {err:.4g} (rtol {rtol}, '
-            f'atol {atol})')
-        if main_args is None:
-            main_args = (x, w, b)
-    x, w, b = main_args
-    bsz, h, wd, c = x.shape
-    k = w.shape[0]
-    ms, plain_ms = paired_ms(bc.branch_chain, bc.branch_chain_plain,
-                             [main_args])
-    w_lib = w.permute(0, 1, 5, 4, 2, 3).to(torch.bfloat16).contiguous()
-    lib_ms = cuda_ms(mfu_experiments.library_chain,
-                     [(x.permute(0, 3, 1, 2), w_lib, b.to(torch.bfloat16))])
-    nbytes = 2 * x.numel() * 2 + w.numel() * 2 + b.numel() * 4
-    ops = 2.0 * k * (h * wd * 9 * c * c * 2) * bsz
-    b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
-    log(f'K3 time {tuple(x.shape)} bf16 k={k}: kernel {ms:.4f} ms, plain '
-        f'{plain_ms:.4f} ms, cuDNN chain {lib_ms:.4f} ms, bound {b_ms:.4f} '
-        f'ms ({b_by}, bf16 tensor cores); {ops / (ms * 1e-3) / 1e12:.1f} '
-        f'TFLOP/s')
+        tol = ('equal to the bit' if isinstance(kind, tuple)
+               else f'rtol {rtol}, atol {atol}')
+        log(f'K3 {label} {shape} k={k}: max abs err {err:.4g} ({tol})')
+    # the main path; its times at batch 256 go into the kernels line.  It
+    # checks the kernel once per batch against the plain version on the
+    # timed input; those launches are not the path's
     bc.branch_chain.launches = 0
-    mfu_experiments.chain_experiment(batches=(256,))
-    launches = bc.branch_chain.launches
-    if launches == 0:
+    rows = mfu_experiments.chain_experiment(batches=(256, 512))
+    launches = bc.branch_chain.launches - len(rows)
+    if launches <= 0:
         raise AssertionError('K3: chain_experiment launched no kernel')
-    log(f'K3 main path chain_experiment(batch 256): {launches} launches; '
-        f'phase {time.perf_counter() - t0:.1f} s')
+    rec = None
+    for row in rows.values():
+        bsz, h, wd, c = row['shape']
+        k = row['k']
+        # max abs err <= 0.05 is within JAX's rtol/atol 0.05 (NaN fails)
+        err = row['kernel_max_abs_diff']
+        if not err <= 0.05:
+            raise AssertionError(f'K3 chain_experiment {tuple(row["shape"])} '
+                                 f'k={k}: max abs err {err} > 0.05')
+        max_err = max(max_err, err)
+        log(f'K3 chain_experiment {tuple(row["shape"])} bf16 k={k}: max abs '
+            f'err {err:.4g} (<= 0.05)')
+        nbytes = 2 * bsz * h * wd * c * 2 + k * 2 * 9 * c * c * 2 + k * 2 * c * 4
+        ops = 2.0 * k * (h * wd * 9 * c * c * 2) * bsz
+        b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
+        ms = row['kernel']['ms']
+        log(f'K3 time {tuple(row["shape"])} bf16 k={k}: kernel {ms:.4f} ms, '
+            f'plain {row["plain"]["ms"]:.4f} ms, cuDNN chain '
+            f'{row["library"]["ms"]:.4f} ms, bound {b_ms:.4f} ms ({b_by}, '
+            f'bf16 tensor cores); kernel {row["kernel"]["tflops"]:.1f} '
+            f'TFLOP/s, {100 * row["kernel"]["mfu_vs_bf16_peak"]:.1f}% of the '
+            f'bf16 peak; cuDNN chain {row["library"]["tflops"]:.1f} TFLOP/s')
+        if rec is None:
+            rec = {'ms': ms, 'plain_ms': row['plain']['ms'],
+                   'bound_ms': b_ms, 'bound_by': b_by,
+                   'library_ms': row['library']['ms']}
+    # what bounds the kernel: cycles per wgmma on each SM, at the clock the
+    # card ran during a second of back-to-back calls at batch 256
+    w, b = bc.make_test_chain(gen, k=4, device=DEVICE)
+    x = (0.5 * torch.randn((256, 64, 64, 32), generator=gen, device=DEVICE)
+         ).to(torch.bfloat16)
+    mhz = sm_clock_mhz_during(bc.branch_chain, (x, w, b))
+    tiles = 256 * -(-64 // bc._TILE_H) * -(-64 // bc._TILE_W)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    # the busiest SM's count: 4 launches of ceil(tiles / n_sm) tiles, each
+    # 20 M tiles of 9 taps x 2 K steps.  The time also holds the weight
+    # loads and the gaps between launches, so the cycles are an upper
+    # estimate of one wgmma's
+    per_sm = 4 * -(-tiles // n_sm) * (bc._H_MTILES + bc._O_MTILES) * 9 * 2
+    cycles = ('not measured' if mhz is None else
+              f'{rec["ms"] * 1e-3 * mhz * 1e6 / per_sm:.1f}')
+    log(f'K3 at batch 256: SM clock {mhz} MHz, {per_sm} wgmma m64n32k16 on '
+        f'the busiest SM, at most {cycles} cycles each (16 at the '
+        f'tensor-core peak; 24 if bound by its 3 KB of shared-memory reads '
+        f'at 128 B per cycle)')
+    log(f'K3 main path chain_experiment(batch 256, 512): {launches} '
+        f'launches; phase {time.perf_counter() - t0:.1f} s')
     return {'name': 'branch_chain', 'route': 'cuda',
             'source': 'esa_pose_estimation_tpu_torch/csrc/branch_chain.cu',
             'replaces':
                 'esa_pose_estimation_tpu/experimental/branch_chain.py:108',
-            'launches': launches, 'max_abs_err': max_err, 'ms': ms,
-            'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
-            'library_ms': lib_ms}
+            'launches': launches, 'max_abs_err': max_err, **rec}
 
 
 def _with_flag(owner, flag: str, value: bool, fn, *args):

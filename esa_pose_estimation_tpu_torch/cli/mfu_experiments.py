@@ -128,7 +128,9 @@ def library_chain(x: torch.Tensor, weights: torch.Tensor,
 
 def chain_experiment(batches=(256, 512), k: int = 4) -> dict:
     """The branch chain at 64x64x32: kernel, plain and library ms per call
-    for each batch, with their shares of the bf16 peak."""
+    for each batch, with their shares of the bf16 peak, and the kernel's and
+    the library's max abs difference from the plain version on the timed
+    input (one more kernel launch per batch)."""
     from esa_pose_estimation_tpu_torch.experimental import branch_chain as bc
     dev = _require_cuda()
     c, hw = 32, 64
@@ -147,11 +149,15 @@ def chain_experiment(batches=(256, 512), k: int = 4) -> dict:
                                [(x, weights, biases)])
         l_ms = cuda_ms(library_chain, [(x_lib, w_lib, b_lib)])
         want = bc.branch_chain_plain(x, weights, biases).float()
+        k_diff = float((bc.branch_chain(x, weights, biases).float()
+                        - want).abs().max())
         lib_diff = float((library_chain(x_lib, w_lib, b_lib)
                           .permute(0, 2, 3, 1).float() - want).abs().max())
         total = flops_per_img * batch
-        row = {'kernel': _rate(total, k_ms), 'plain': _rate(total, p_ms),
+        row = {'shape': list(x.shape), 'k': k,
+               'kernel': _rate(total, k_ms), 'plain': _rate(total, p_ms),
                'library': _rate(total, l_ms),
+               'kernel_max_abs_diff': k_diff,
                'library_max_abs_diff': lib_diff}
         results[f'chain_b{batch}'] = row
         print(json.dumps({f'chain_b{batch}': row}), flush=True)

@@ -14,9 +14,10 @@ with f32 accumulation and the residual read as f32.
 Bound on the card: operations (2k 3x3 convs at C = 32; 154.6 GFLOP against
 134 MB at batch 256, 64x64).  The TPU kernel pins a whole (T, 64, 64, 32)
 block in VMEM; a Hopper block cannot hold one image (256 KB in bf16), so
-the kernel runs one launch per residual block over 16x16 output tiles with
-a 2-pixel halo in shared memory, and does its arithmetic as f32 FMA on the
-CUDA cores.  Tensor cores are later work.
+both kernels run one launch per residual block over output tiles with a
+2-pixel halo in shared memory.  bf16 goes to an implicit GEMM on the tensor
+cores (``wgmma``, 16x32 tiles staged ``_WS`` positions wide, weights packed
+by :func:`pack_weights`); f32 to FMA on the CUDA cores (16x16 tiles).
 
 The chain is an experiment of its own (``cli/mfu_experiments.py --chain``);
 no model calls it.
@@ -32,18 +33,26 @@ import torch.nn.functional as F
 from esa_pose_estimation_tpu_torch import _build
 
 _C = 32           # the only channel count the kernel takes
-_fn = None
+# the bf16 kernel's tile geometry, mirrored from csrc/branch_chain.cu (the
+# CPU tests emulate the kernel with these)
+_TILE_H, _TILE_W = 16, 32                    # output tile (kTileH, kTileW)
+_WS = _TILE_W + 4                            # staged row width (kWs)
+_M = 64                                      # positions per wgmma (kM)
+_H_MTILES = -(-(_TILE_H + 2) * _WS // _M)    # M tiles of h (kHMTiles)
+_O_MTILES = -(-_TILE_H * _WS // _M)          # M tiles of the output
+_X_POS = (_H_MTILES * _M + 2 * _WS + 2 + 15) // 16 * 16   # staged x (kXPos)
+_fns: dict = {}
 
 
-def _entry():
-    global _fn
-    if _fn is None:
-        fn = _build.load('branch_chain').branch_chain_launch
+def _entry(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.load('branch_chain'), name)
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 4 \
-            + [ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def _conv3x3_f32(x_nchw: torch.Tensor, w_hwio: torch.Tensor) -> torch.Tensor:
@@ -73,13 +82,29 @@ def branch_chain_plain(x: torch.Tensor, weights: torch.Tensor,
     return cur.permute(0, 2, 3, 1).contiguous()
 
 
+def pack_weights(weights: torch.Tensor) -> torch.Tensor:
+    """The bf16 kernel's weight order, on the weights' device.
+
+    (k, 2, 3, 3, C, C) HWIO -> contiguous bf16 (k, 2, 9, C // 8, C, 8) with
+    ``packed[i, j, t, g, co, c] = weights[i, j, t // 3, t % 3, 8 g + c, co]``
+    (rounded to bf16, as JAX casts them).  For conv j of block i and tap t,
+    ``packed[i, j, t]`` is the B operand of ``wgmma`` in K-major no-swizzle
+    core matrices: per group g of 8 input channels, the C output channels
+    as rows of 16 bytes.
+    """
+    k, _, _, _, cin, cout = weights.shape
+    w = weights.to(torch.bfloat16).reshape(k, 2, 9, cin // 8, 8, cout)
+    return w.permute(0, 1, 2, 3, 5, 4).contiguous()
+
+
 def branch_chain(x: torch.Tensor, weights: torch.Tensor,
                  biases: torch.Tensor) -> torch.Tensor:
     """The k-block residual chain (the :func:`branch_chain_plain` function).
 
-    A CUDA tensor launches the kernel: x contiguous (B, H, W, 32) bf16 or
-    f32; weights (k, 2, 3, 3, 32, 32) and biases (k, 2, 32) of any float
-    type.  A CPU tensor takes the plain version.  Any other device raises.
+    A CUDA tensor launches the kernel: x contiguous and 16-byte aligned
+    (B, H, W, 32) bf16 (tensor cores) or f32 (FMA); weights
+    (k, 2, 3, 3, 32, 32) and biases (k, 2, 32) of any float type.  A CPU
+    tensor takes the plain version.  Any other device raises.
     """
     if x.device.type == 'cpu':
         return branch_chain_plain(x, weights, biases)
@@ -97,20 +122,23 @@ def branch_chain(x: torch.Tensor, weights: torch.Tensor,
     if weights.shape != (k, 2, 3, 3, c, c) or biases.shape != (k, 2, c):
         raise ValueError(f'branch_chain: weight shapes {tuple(weights.shape)} '
                          f'{tuple(biases.shape)} do not fit C={c}')
+    if x.data_ptr() % 16:
+        raise ValueError('branch_chain: x must be 16-byte aligned')
     dev = x.device
-    # the kernel multiplies in f32 by weights rounded to x's dtype, as JAX
-    # casts them
-    wf = weights.to(device=dev, dtype=x.dtype).to(torch.float32).contiguous()
+    if x.dtype == torch.bfloat16:
+        name, wk = 'branch_chain_bf16_launch', pack_weights(weights.to(dev))
+    else:
+        name = 'branch_chain_f32_launch'
+        wk = weights.to(device=dev, dtype=torch.float32).contiguous()
     bf = biases.to(device=dev, dtype=torch.float32).contiguous()
     out = torch.empty_like(x)
     if x.numel() == 0 or k == 0:
         return out.copy_(x)
     scratch = torch.empty_like(x) if k > 1 else None
-    err = _entry()(x.data_ptr(), out.data_ptr(),
-                   scratch.data_ptr() if scratch is not None else None,
-                   wf.data_ptr(), bf.data_ptr(), b_, h, w_, k,
-                   int(x.dtype == torch.bfloat16),
-                   torch.cuda.current_stream(dev).cuda_stream)
+    err = _entry(name)(x.data_ptr(), out.data_ptr(),
+                       scratch.data_ptr() if scratch is not None else None,
+                       wk.data_ptr(), bf.data_ptr(), b_, h, w_, k,
+                       torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, 'branch_chain')
     branch_chain.launches += 1
     return out
