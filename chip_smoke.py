@@ -11,14 +11,21 @@ ground truth, and times the path.  Phases:
 
   1. device      the card's name and power limit (nvidia-smi)
   2. build       nvcc of every kernel source, in parallel
-  3. K1          peak decode vs its plain version, (64, 128, 128, 30)
+  3. K1          peak decode vs its plain version on (B, 128, 128, 30)
+                 Gaussian, plateau and all-zero maps at every batch the
+                 main path serves (1, 32, 64, 256), noise at 64, and an
+                 odd shape; timed at batch 64 and 256
   4. K2          fused CBAM vs its plain version, the five hrnet_esa map
-                 shapes at batch 64, with and without residual
+                 shapes at batch 1, 64 and 256, with and without
+                 residual, and three ragged shapes; two launches must be
+                 equal; timed per site and per forward at 64 and 256
   5. serving     64 synthetic frames -> infer_poses, SPEED score (median
                  must be <= 0.01), launch counts; again with FUSED_CBAM
+                 (heatmaps within 0.05, median <= 0.01)
   6. throughput  images/s of infer_poses at batch 1 and 256, K2 off and on
-  7. profile     one batch-256 call under torch.profiler: time per stage,
-                 kernel time, the device's idle share
+  7. profile     one batch-256 call under torch.profiler, FUSED_CBAM off
+                 then on: time per stage, kernel time, the device's idle
+                 share, the hrnet stage both ways, K2 kernels per forward
   8. K3          branch chain vs its plain version: bf16 (tensor-core
                  kernel) at (256, 64, 64, 32) k=4, two ragged shapes, zero
                  input, and two exact-tap cases that must be bit-equal;
@@ -32,11 +39,16 @@ ground truth, and times the path.  Phases:
  10. eval        cli.eval_synthetic on 128 held-out frames, plain (median
                  must be <= 0.01) and with --int8
 
-Any failed check raises, so the exit code is non-zero and the final line
-is not printed.  The line before the last is a JSON record of each kernel
-(launches on its main path: the serving call for K1 and K2, the
-branch-chain experiment for K3; error against its plain version, times,
-bound); the last line is ``{"ok": true, "device": {...}}``.
+Kernel and plain times (``ms``, ``plain_ms``) are means of eager calls
+between CUDA events, host cost included, as in earlier PRs; K1 and K2 are
+also timed with the same calls replayed from a CUDA graph
+(``utils/timing.graph_ms``: device time), printed beside them and kept as
+``graph_ms`` and ``plain_graph_ms``.  Any failed check raises, so the
+exit code is non-zero and the final line is not printed.  The line before
+the last is a JSON record of each kernel (launches on its main path: the
+serving call for K1 and K2, the branch-chain experiment for K3; error
+against its plain version, times, bound); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -120,47 +132,134 @@ def gaussian_maps(gen: torch.Generator, b: int, s: int, k: int
     return hm.permute(0, 2, 3, 1).contiguous()              # (B, S, S, K)
 
 
-def phase_k1() -> dict:
+def plateau_maps(gen: torch.Generator, b: int, s: int, k: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, S, K) noise below 0.5 with the maximum 0.9 at two pixels of
+    every map, S/2 rows apart (so in two different bands wherever the
+    kernel splits an image in two or more); returns the maps and the first
+    pixel's row-major index (B, K)."""
+    hm = 0.5 * torch.rand((b, s, s, k), generator=gen, device=DEVICE)
+    ya = torch.randint(0, s // 2, (b, k), generator=gen, device=DEVICE)
+    xa = torch.randint(0, s, (b, k), generator=gen, device=DEVICE)
+    xb = torch.randint(0, s, (b, k), generator=gen, device=DEVICE)
+    bi = torch.arange(b, device=DEVICE)[:, None].expand(b, k)
+    ki = torch.arange(k, device=DEVICE)[None, :].expand(b, k)
+    hm[bi, ya, xa, ki] = 0.9
+    hm[bi, ya + s // 2, xb, ki] = 0.9
+    return hm, (ya * s + xa).to(torch.int32)
+
+
+# the batches the main path gives K1: 1 and 256 (phase 6), 32
+# (cli/eval_synthetic's batch, phase 10), 64 (phases 5 and 9); K1 and K2
+# choose their cluster size from the batch, so each is checked
+K1_BATCHES = (1, 32, 64, 256)
+
+
+def check_k1(label: str, hm: torch.Tensor, first: torch.Tensor | None
+             ) -> float:
+    """K1 against its plain version on (B, S, S, K) maps: integer peaks and
+    maxvals equal (and the peaks equal to ``first`` where given), coords
+    within 1e-4; returns the coords' max abs err."""
     from esa_pose_estimation_tpu_torch.ops import peak
     from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
         peak_decode,
     )
+    s = hm.shape[2]
+    c_k, m_k, p_k = peak_decode(hm, return_peaks=True)
+    torch.cuda.synchronize()
+    c_p, m_p = peak.decode_heatmaps(hm.permute(0, 3, 1, 2))
+    ipk, _ = peak.argmax_peaks(hm.permute(0, 3, 1, 2))
+    p_p = (ipk[..., 1] * s + ipk[..., 0]).to(torch.int32)
+    if not torch.equal(p_k, p_p):
+        raise AssertionError(f'K1 {label}: integer peaks differ')
+    if first is not None and not torch.equal(p_k, first):
+        raise AssertionError(f'K1 {label}: not the first maximum')
+    if not torch.equal(m_k, m_p):
+        raise AssertionError(f'K1 {label}: maxvals differ')
+    err = float((c_k - c_p).abs().max())
+    if not err <= 1e-4:
+        raise AssertionError(f'K1 {label}: coords differ by {err}')
+    log(f'K1 {label} {tuple(hm.shape)}: integer peaks and maxvals equal, '
+        f'coords max abs err {err:.3g} (tolerance 1e-4)')
+    return err
+
+
+def phase_k1() -> dict:
+    """K1 against its plain version at every batch the main path gives it:
+    Gaussian, plateau (equal maxima in two bands: the first row-major one
+    must win) and all-zero maps (the peak is index 0), and noise at batch
+    64; timed at batch 64 and 256, by eager calls (the ``ms`` of earlier
+    PRs) and by CUDA-graph replay (device time)."""
+    from esa_pose_estimation_tpu_torch.ops import peak
+    from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
+        cluster_config,
+        launch_shape,
+        peak_decode,
+    )
     from esa_pose_estimation_tpu_torch.utils.timing import paired_ms
-    b, s, k = 64, 128, 30
+    s, k = 128, 30
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    cases = {'gaussian': gaussian_maps(gen, b, s, k),
-             'noise': torch.rand((b, s, s, k), generator=gen, device=DEVICE)}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     max_err = 0.0
-    for name, hm in cases.items():
-        c_k, m_k, p_k = peak_decode(hm, return_peaks=True)
-        torch.cuda.synchronize()
-        c_p, m_p = peak.decode_heatmaps(hm.permute(0, 3, 1, 2))
-        ipk, _ = peak.argmax_peaks(hm.permute(0, 3, 1, 2))
-        p_p = (ipk[..., 1] * s + ipk[..., 0]).to(torch.int32)
-        if not torch.equal(p_k, p_p):
-            raise AssertionError(f'K1 {name}: integer peaks differ')
-        if not torch.equal(m_k, m_p):
-            raise AssertionError(f'K1 {name}: maxvals differ')
-        err = float((c_k - c_p).abs().max())
-        if err > 1e-4:
-            raise AssertionError(f'K1 {name}: coords differ by {err}')
-        max_err = max(max_err, err)
-        log(f'K1 {name} {tuple(hm.shape)}: integer peaks and maxvals equal, '
-            f'coords max abs err {err:.3g} (tolerance 1e-4)')
-    hm = cases['gaussian']
-    bufs = [(hm.clone(),) for _ in range(copies_for(hm.numel() * 4))]
-    ms, plain_ms = paired_ms(
-        peak_decode, lambda x: peak.decode_heatmaps(x.permute(0, 3, 1, 2)),
-        bufs)
-    nbytes = hm.numel() * 4 + b * k * 3 * 4
-    b_ms, b_by = bound(nbytes, 2.0 * hm.numel())
-    log(f'K1 time (64,128,128,30): kernel {ms:.4f} ms, plain {plain_ms:.4f} '
-        f'ms, bound {b_ms:.4f} ms ({b_by})')
+    rec = {}
+    for batch in K1_BATCHES:
+        cfg = cluster_config(batch, s, s, k)
+        if launch_shape(batch, s, s, k, n_sm)[::2] != (cfg['ranks'], cfg['vec']):
+            raise AssertionError(f'K1: launch_shape differs from the kernel '
+                                 f'{cfg}')
+        log(f'K1 launch at batch {batch}: {cfg["ranks"]} CTAs per image (one '
+            f'cluster) of {cfg["threads"]} threads, {4 * cfg["vec"]}-byte '
+            f'loads, {cfg["max_active_clusters"]} clusters at once')
+        plateau, first = plateau_maps(gen, batch, s, k)
+        cases = {'gaussian': (gaussian_maps(gen, batch, s, k), None),
+                 'plateau': (plateau, first),
+                 'all-zero': (torch.zeros((batch, s, s, k), device=DEVICE),
+                              torch.zeros((batch, k), dtype=torch.int32,
+                                          device=DEVICE))}
+        if batch == 64:
+            cases['noise'] = (torch.rand((batch, s, s, k), generator=gen,
+                                         device=DEVICE), None)
+        for name, (hm, want) in cases.items():
+            max_err = max(max_err, check_k1(name, hm, want))
+        hm = cases['gaussian'][0]
+        del cases, plateau, first
+        if batch in (64, 256):
+            bufs = [(hm.clone(),) for _ in range(copies_for(hm.numel() * 4))]
+
+            def plain(x):
+                return peak.decode_heatmaps(x.permute(0, 3, 1, 2))
+            ms, plain_ms = paired_ms(peak_decode, plain, bufs)
+            g_ms, g_plain_ms = paired_ms(peak_decode, plain, bufs, graph=True)
+            nbytes = hm.numel() * 4 + batch * k * 3 * 4
+            b_ms, b_by = bound(nbytes, 2.0 * hm.numel())
+            log(f'K1 time ({batch},128,128,30): eager calls kernel {ms:.4f} '
+                f'ms, plain {plain_ms:.4f} ms; graph replay kernel '
+                f'{g_ms:.4f} ms, plain {g_plain_ms:.4f} ms; bound '
+                f'{b_ms:.4f} ms ({b_by})')
+            if batch == 64:
+                rec = {'ms': ms, 'plain_ms': plain_ms, 'graph_ms': g_ms,
+                       'plain_graph_ms': g_plain_ms, 'bound_ms': b_ms,
+                       'bound_by': b_by}
+            del bufs
+        del hm
+    # W * K odd: the kernel's 4-byte-load instance; 16 CTAs per image in
+    # bands of 3 rows, the last three empty
+    odd = torch.rand((3, 37, 29, 7), generator=gen, device=DEVICE)
+    c_k, m_k, p_k = peak_decode(odd, return_peaks=True)
+    torch.cuda.synchronize()
+    c_p, m_p, p_p = peak_decode(odd.cpu(), return_peaks=True)
+    err = float((c_k.cpu() - c_p).abs().max())
+    if not (torch.equal(p_k.cpu(), p_p) and torch.equal(m_k.cpu(), m_p)
+            and err <= 1e-4):
+        raise AssertionError(f'K1 odd {tuple(odd.shape)}: differs from the '
+                             f'plain version (coords {err})')
+    max_err = max(max_err, err)
+    log(f'K1 odd {tuple(odd.shape)} (4-byte loads): integer peaks and '
+        f'maxvals equal, coords max abs err {err:.3g} (tolerance 1e-4)')
     return {'name': 'peak_decode', 'route': 'cuda',
             'source': 'esa_pose_estimation_tpu_torch/csrc/peak_decode.cu',
             'replaces': 'esa_pose_estimation_tpu/ops/pallas/peak_decode.py:75',
-            'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms,
-            'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None}
+            'max_abs_err': max_err, 'library_ms': None, **rec}
 
 
 # hrnet_esa's CBAM sites in one forward: (H, W, C, residual, count)
@@ -169,67 +268,127 @@ CBAM_SITES = ((64, 64, 32, True, 10), (32, 32, 64, True, 8),
               (128, 128, 64, False, 1))
 
 
-def phase_k2() -> dict:
+def cbam_inputs(gen: torch.Generator, b: int, h: int, w: int, c: int):
+    """x, residual (bf16 NHWC) and the site's f32 weights."""
+    hid = c // 16
+    x = torch.randn((b, h, w, c), generator=gen, device=DEVICE
+                    ).to(torch.bfloat16)
+    res = torch.randn((b, h, w, c), generator=gen, device=DEVICE
+                      ).to(torch.bfloat16)
+    fc1 = 0.3 * torch.randn((c, hid), generator=gen, device=DEVICE)
+    fc2 = 0.3 * torch.randn((hid, c), generator=gen, device=DEVICE)
+    spw = 0.2 * torch.randn((7, 7, 2), generator=gen, device=DEVICE)
+    return x, res, fc1, fc2, spw
+
+
+def check_cbam(label: str, x, fc1, fc2, spw, r) -> float:
+    """The kernel against its plain version, and two launches on the same
+    input equal to the bit; returns the max abs err."""
     from esa_pose_estimation_tpu_torch.experimental.cbam_fuse import (
         cbam_plain,
         fused_cbam,
     )
+    got = fused_cbam(x, fc1, fc2, spw, r)
+    again = fused_cbam(x, fc1, fc2, spw, r)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f'K2 {label}: two launches differ')
+    got = got.float()
+    want = cbam_plain(x, fc1, fc2, spw, r).float()
+    # both round an f32 result to bf16; sums taken in another order can
+    # land on either side of a rounding boundary: one bf16 step
+    # (<= 2^-7 |want|), plus f32 noise near zero
+    excess = ((got - want).abs() - (2.0 ** -7 * want.abs() + 1e-4)).max()
+    err = float((got - want).abs().max())
+    if not bool(torch.isfinite(got).all()) or float(excess) > 0:
+        raise AssertionError(f'K2 {label}: max abs err {err}')
+    log(f'K2 {label}: max abs err {err:.4g} (tolerance 2^-7|plain| + 1e-4), '
+        f'two launches equal')
+    return err
+
+
+# the batches the main path gives K2 with FUSED_CBAM on: 64 (phase 5), 1
+# and 256 (phases 6 and 7); it is timed at 64 and 256
+K2_BATCHES = (1, 64, 256)
+
+
+def phase_k2() -> dict:
+    """K2 against its plain version at the five hrnet_esa site shapes, at
+    every batch the main path gives it, with and without residual, and on
+    ragged shapes; two launches on one input must be equal.  Timed per
+    site and per forward at batch 64 and 256, by eager calls (the ``ms``
+    of earlier PRs) and by CUDA-graph replay (device time); the kernels
+    line takes batch 64."""
+    from esa_pose_estimation_tpu_torch.experimental.cbam_fuse import (
+        cbam_plain,
+        cluster_config,
+        fused_cbam,
+    )
     from esa_pose_estimation_tpu_torch.utils.timing import paired_ms
-    b = 64
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     max_err = 0.0
-    tot = {'ms': 0.0, 'plain_ms': 0.0, 'bytes': 0.0, 'ops': 0.0}
-    for h, w, c, serving_res, count in CBAM_SITES:
-        hid = c // 16
-        x = torch.randn((b, h, w, c), generator=gen, device=DEVICE
-                        ).to(torch.bfloat16)
-        res = torch.randn((b, h, w, c), generator=gen, device=DEVICE
-                          ).to(torch.bfloat16)
-        fc1 = 0.3 * torch.randn((c, hid), generator=gen, device=DEVICE)
-        fc2 = 0.3 * torch.randn((hid, c), generator=gen, device=DEVICE)
-        spw = 0.2 * torch.randn((7, 7, 2), generator=gen, device=DEVICE)
-        for r in (res, None):
-            got = fused_cbam(x, fc1, fc2, spw, r).float()
-            torch.cuda.synchronize()
-            want = cbam_plain(x, fc1, fc2, spw, r).float()
-            # both round an f32 result to bf16; sums taken in another order
-            # can land on either side of a rounding boundary: one bf16 step
-            # (<= 2^-7 |want|), plus f32 noise near zero
-            excess = ((got - want).abs()
-                      - (2.0 ** -7 * want.abs() + 1e-4)).max()
-            err = float((got - want).abs().max())
-            if not bool(torch.isfinite(got).all()) or float(excess) > 0:
-                raise AssertionError(
-                    f'K2 {h}x{w}x{c} res={r is not None}: max abs err {err}')
-            max_err = max(max_err, err)
-            log(f'K2 {b}x{h}x{w}x{c} residual={r is not None}: max abs err '
-                f'{err:.4g} (tolerance 2^-7|plain| + 1e-4)')
-        r = res if serving_res else None
-        args = (x, fc1, fc2, spw, r)
-        bufs = [tuple(a.clone() if a is not None else None for a in args)
-                for _ in range(copies_for(x.numel() * 2 * (3 if r is not None
-                                                           else 2)))]
-        ms, plain_ms = paired_ms(fused_cbam, cbam_plain, bufs)
-        n = x.numel()
-        nbytes = n * 2 * (3 if r is not None else 2) + (2 * c * hid + 98) * 4
-        ops = n * (8 if r is not None else 6) + b * h * w * 200 + b * 4 * c * hid
-        b_ms, b_by = bound(nbytes, ops)
-        log(f'K2 time {b}x{h}x{w}x{c} residual={r is not None} (x{count} per '
-            f'forward): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
-            f'{b_ms:.4f} ms ({b_by})')
-        tot['ms'] += count * ms
-        tot['plain_ms'] += count * plain_ms
-        tot['bytes'] += count * nbytes
-        tot['ops'] += count * ops
-    b_ms, b_by = bound(tot['bytes'], tot['ops'])
-    log(f'K2 time per forward (29 sites, batch 64): kernel {tot["ms"]:.3f} '
-        f'ms, plain {tot["plain_ms"]:.3f} ms, bound {b_ms:.3f} ms ({b_by})')
+    for (b, h, w, c), with_res in (((3, 20, 36, 64), True),
+                                   ((1, 8, 8, 256), True),
+                                   ((2, 128, 128, 64), False)):
+        x, res, fc1, fc2, spw = cbam_inputs(gen, b, h, w, c)
+        max_err = max(max_err, check_cbam(
+            f'ragged {b}x{h}x{w}x{c} residual={with_res}', x, fc1, fc2, spw,
+            res if with_res else None))
+    rec = {}
+    for b in K2_BATCHES:
+        tot = {'ms': 0.0, 'plain_ms': 0.0, 'graph_ms': 0.0,
+               'plain_graph_ms': 0.0, 'bytes': 0.0, 'ops': 0.0}
+        for h, w, c, serving_res, count in CBAM_SITES:
+            hid = c // 16
+            x, res, fc1, fc2, spw = cbam_inputs(gen, b, h, w, c)
+            cfg = cluster_config(b, h, w, c, hid)
+            log(f'K2 launch {b}x{h}x{w}x{c}: {cfg["ranks"]} CTAs per image, '
+                f'{cfg["smem_bytes"]} B shared memory each, '
+                f'{cfg["max_active_clusters"]} clusters at once')
+            for r in (res, None):
+                max_err = max(max_err, check_cbam(
+                    f'{b}x{h}x{w}x{c} residual={r is not None}', x, fc1,
+                    fc2, spw, r))
+            if b == 1:
+                continue
+            r = res if serving_res else None
+            args = (x, fc1, fc2, spw, r)
+            bufs = [tuple(a.clone() if a is not None else None for a in args)
+                    for _ in range(copies_for(
+                        x.numel() * 2 * (3 if r is not None else 2)))]
+            ms, plain_ms = paired_ms(fused_cbam, cbam_plain, bufs)
+            g_ms, g_plain_ms = paired_ms(fused_cbam, cbam_plain, bufs,
+                                         graph=True)
+            del bufs
+            n = x.numel()
+            nbytes = n * 2 * (3 if r is not None else 2) + (2 * c * hid + 98) * 4
+            ops = n * (8 if r is not None else 6) + b * h * w * 200 + b * 4 * c * hid
+            b_ms, b_by = bound(nbytes, ops)
+            log(f'K2 time {b}x{h}x{w}x{c} residual={r is not None} (x{count} '
+                f'per forward): eager calls kernel {ms:.4f} ms, plain '
+                f'{plain_ms:.4f} ms; graph replay kernel {g_ms:.4f} ms, '
+                f'plain {g_plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by})')
+            for key, v in (('ms', ms), ('plain_ms', plain_ms),
+                           ('graph_ms', g_ms), ('plain_graph_ms', g_plain_ms),
+                           ('bytes', nbytes), ('ops', ops)):
+                tot[key] += count * v
+            del x, res, args
+        if b == 1:
+            continue
+        b_ms, b_by = bound(tot['bytes'], tot['ops'])
+        log(f'K2 time per forward (29 sites, batch {b}): eager calls kernel '
+            f'{tot["ms"]:.3f} ms, plain {tot["plain_ms"]:.3f} ms; graph '
+            f'replay kernel {tot["graph_ms"]:.3f} ms, plain '
+            f'{tot["plain_graph_ms"]:.3f} ms; bound {b_ms:.3f} ms ({b_by})')
+        if b == 64:
+            rec = {k: tot[k] for k in ('ms', 'plain_ms', 'graph_ms',
+                                       'plain_graph_ms')}
+            rec.update(bound_ms=b_ms, bound_by=b_by)
+    torch.cuda.empty_cache()
     return {'name': 'fused_cbam', 'route': 'cuda',
             'source': 'esa_pose_estimation_tpu_torch/csrc/cbam_fuse.cu',
             'replaces': 'esa_pose_estimation_tpu/experimental/cbam_fuse.py:92',
-            'max_abs_err': max_err, 'ms': tot['ms'],
-            'plain_ms': tot['plain_ms'], 'bound_ms': b_ms, 'bound_by': b_by,
-            'library_ms': None}
+            'max_abs_err': max_err, 'library_ms': None, **rec}
 
 
 def _angles(Ra: torch.Tensor, Rb: torch.Tensor) -> torch.Tensor:
@@ -302,14 +461,22 @@ def phase_serving(model, pts):
     ang = _angles(out.R, out2.R)
     dt = ((out.trans - out2.trans).norm(dim=-1)
           / out.trans.norm(dim=-1))
-    sc2 = speed_score_from_matrices(out2.R, out2.trans, s.quat,
-                                    s.trans).speed.cpu().tolist()
+    med2 = statistics.median(speed_score_from_matrices(
+        out2.R, out2.trans, s.quat, s.trans).speed.cpu().tolist())
     hm_diff = float((out.heatmaps - out2.heatmaps).abs().max())
     log(f'serving FUSED_CBAM: K1 launches {k1b}, K2 launches {k2b} (29 per '
-        f'forward); heatmaps moved max {hm_diff:.4g}; poses moved median '
-        f'{float(ang.median()):.3g} rad / max {float(ang.max()):.3g} rad, '
-        f'translation rel max {float(dt.max()):.3g}; SPEED median '
-        f'{statistics.median(sc2):.5f}')
+        f'forward); heatmaps moved max {hm_diff:.4g} (rtol/atol 0.05); poses '
+        f'moved median {float(ang.median()):.3g} rad / max '
+        f'{float(ang.max()):.3g} rad, translation rel max '
+        f'{float(dt.max()):.3g}; SPEED median {med2:.5f} (limit 0.01)')
+    # K2 computes the CBAM composite's function, so the heatmaps may move
+    # by bf16 rounding only, as for the exact levers of phase 9
+    if not torch.allclose(out2.heatmaps, out.heatmaps, rtol=0.05, atol=0.05):
+        raise AssertionError(f'serving with FUSED_CBAM: heatmaps moved '
+                             f'{hm_diff}')
+    if not med2 <= 0.01:
+        raise AssertionError(f'serving with FUSED_CBAM: SPEED median {med2} '
+                             '> 0.01')
     return k1, k2b, s, out
 
 
@@ -349,16 +516,51 @@ def phase_throughput(model, pts) -> None:
 STAGES = ('crop', 'hrnet', 'decode', 'ransac_epnp', 'refine')
 
 
+K2_KERNEL = 'cbam_cluster_kernel'
+
+
 def phase_profile(model, pts, frames, boxes, rgen) -> None:
-    """One batch-256 ``infer_poses`` (FUSED_CBAM off) under torch.profiler:
-    per stage (the pipeline's record_function ranges) its host time, the
-    span of its device work and the kernel time inside that span; for the
-    call, kernel time over wall time.  The profiler's own host cost slows
-    the call, so the idle share here is an upper bound."""
+    """One batch-256 ``infer_poses`` under torch.profiler with FUSED_CBAM
+    off, then one with it on: per stage (the pipeline's record_function
+    ranges) its host time, the span of its device work and the kernel time
+    inside that span; for the call, kernel time over wall time; with K2
+    on, its device kernels per forward (at most 30).  The profiler's own
+    host cost slows the call, so the idle share here is an upper bound."""
+    from esa_pose_estimation_tpu_torch.models import layers
+    hrnet = {}
+    for fused in (False, True):
+        layers.FUSED_CBAM = fused
+        try:
+            hrnet[fused] = profile_call(model, pts, frames, boxes, rgen,
+                                        top=8 if not fused else 3)
+        finally:
+            layers.FUSED_CBAM = False
+    # the K2-per-forward check must not pass unmeasured
+    if hrnet[True] is None:
+        raise AssertionError('profile: no hrnet kernels recorded with '
+                             'FUSED_CBAM on, so K2 per forward is unmeasured')
+    k2 = hrnet[True][2]
+    off = ('not measured' if hrnet[False] is None else
+           f'{hrnet[False][0]:.2f} ms of kernels in {hrnet[False][1]} launches')
+    log(f'profile hrnet stage at batch 256: FUSED_CBAM off {off}; on '
+        f'{hrnet[True][0]:.2f} ms in {hrnet[True][1]} launches, {k2} of them '
+        f'K2 (one forward)')
+    if not 0 < k2 <= 30:
+        raise AssertionError(f'profile: {k2} K2 device kernels per forward '
+                             '(expected 1 to 30)')
+
+
+def profile_call(model, pts, frames, boxes, rgen, top: int
+                 ) -> tuple[float, int, int] | None:
+    """Profile one call; log its stages and ``top`` kernels.  Returns the
+    hrnet stage's (kernel ms, kernel launches, K2 kernels), or None when
+    the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from esa_pose_estimation_tpu_torch import pipeline
+    from esa_pose_estimation_tpu_torch.models import layers
+    tag = f'profile FUSED_CBAM={layers.FUSED_CBAM}'
     pipeline.infer_poses(model, frames, boxes, pts, rgen)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -371,12 +573,13 @@ def phase_profile(model, pts, frames, boxes, rgen) -> None:
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
     kernels = [e for e in dev if e.name not in STAGES]
     if not kernels:
-        log('profile: the profiler recorded no device time (not measured)')
-        return
+        log(f'{tag}: the profiler recorded no device time (not measured)')
+        return None
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    log(f'profile batch 256: wall {wall_ms:.1f} ms under the profiler, '
+    log(f'{tag} batch 256: wall {wall_ms:.1f} ms under the profiler, '
         f'{len(kernels)} kernels, {busy_ms:.1f} ms of kernel time, device '
         f'idle share {1 - busy_ms / wall_ms:.3f}')
+    hrnet = None
     for name in STAGES:
         host = sum(e.time_range.elapsed_us() for e in events
                    if e.name == name and e.device_type == DeviceType.CPU)
@@ -385,16 +588,20 @@ def phase_profile(model, pts, frames, boxes, rgen) -> None:
         hi = max((r.end for r in spans), default=0.0)
         inside = [e for e in kernels if lo <= e.time_range.start < hi]
         k_ms = sum(e.time_range.elapsed_us() for e in inside) / 1e3
-        log(f'profile stage {name}: host {host / 1e3:.2f} ms, device span '
+        log(f'{tag} stage {name}: host {host / 1e3:.2f} ms, device span '
             f'{(hi - lo) / 1e3:.2f} ms, kernels {k_ms:.2f} ms in '
             f'{len(inside)} launches')
+        if name == 'hrnet':
+            hrnet = (k_ms, len(inside),
+                     sum(K2_KERNEL in e.name for e in inside))
     by_name: dict[str, list[float]] = {}
     for e in kernels:
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]
-    for name, times in top:
-        log(f'profile kernel {sum(times) / 1e3:8.2f} ms {len(times):5d}x '
+    ranked = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:top]
+    for name, times in ranked:
+        log(f'{tag} kernel {sum(times) / 1e3:8.2f} ms {len(times):5d}x '
             f'{name[:90]}')
+    return hrnet
 
 
 def exact_tap_chain(gen: torch.Generator, k: int, tap: tuple[int, int]
@@ -651,9 +858,12 @@ def main() -> None:
     phase_levers(model, pts, frames, base)
     phase_eval()
     log(f'total: {time.perf_counter() - t_start:.1f} s')
+    # graph_ms / plain_graph_ms (K1 and K2): the same calls replayed from a
+    # CUDA graph, beside ms / plain_ms by eager calls as in earlier PRs
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
-            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
-    print(json.dumps({'kernels': [{k: rec[k] for k in keys}
+            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
+            'graph_ms', 'plain_graph_ms')
+    print(json.dumps({'kernels': [{k: rec[k] for k in keys if k in rec}
                                   for rec in (k1, k2, k3)]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -87,7 +87,11 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check(err: int, what: str) -> None:
-    """Raise if a C entry point returned a non-zero ``cudaGetLastError()``."""
+def check(err: int, what: str, errors: dict[int, str] | None = None
+          ) -> None:
+    """Raise if a C entry point returned non-zero: a ``cudaError_t``, or
+    one of the entry point's own (negative) codes, named in ``errors``."""
+    if errors and err in errors:
+        raise RuntimeError(f'{what}: {errors[err]}')
     if err != 0:
         raise RuntimeError(f'{what}: CUDA launch failed with error {err}')

@@ -1,7 +1,7 @@
 """Utilization experiments on one NVIDIA H100.
 
     python -m esa_pose_estimation_tpu_torch.cli.mfu_experiments [--chain |
-        --int8 | --int8-matmul]
+        --int8 | --int8-matmul | --cluster-sweep]
 
 Port of the JAX package's ``scripts/mfu_experiments.py``.  Every mode times
 on the card with CUDA events and reports its share of the card's bf16
@@ -23,6 +23,18 @@ CUDA device.  Modes:
   contraction (the int8 one with its second operand row- and
   column-major), and the head conv's int32 accumulator as the int8 path
   computes it.
+* ``--cluster-sweep``: the two cluster kernels at batch 64 and 256 with
+  each cluster size R (CTAs per image) that fits: the fused CBAM kernel
+  (``experimental/cbam_fuse.py``) at hrnet_esa's five site shapes, then
+  the peak-decode kernel (``ops/kernels/peak_decode.py``) on
+  (B, 128, 128, 30) Gaussian maps.  It is the measurement behind the CBAM
+  kernel's table of R per site (``kSiteRanks``) and peak decode's default
+  R, and exists to re-derive them on another card; serving never passes
+  an R.  Its share of the bf16 peak is not reported (both kernels are
+  bound by bytes); the rows carry the cluster's shared memory or threads
+  and how many such clusters the card holds at once.  It times the device
+  by CUDA-graph replay (``utils/timing.graph_ms``), so the host's cost per
+  call does not count.
 
 Each mode prints one JSON line per measurement and a last line with all.
 """
@@ -41,6 +53,7 @@ from torch import nn
 from esa_pose_estimation_tpu_torch.utils.timing import (
     BF16_TC_FLOPS,
     cuda_ms,
+    graph_ms,
     paired_ms,
 )
 
@@ -223,6 +236,71 @@ def int8_matmul_experiment() -> dict:
     return out
 
 
+# hrnet_esa's CBAM sites: (H, W, C, residual)
+CBAM_SITES = ((64, 64, 32, True), (32, 32, 64, True), (16, 16, 128, True),
+              (8, 8, 256, True), (128, 128, 64, False))
+
+
+def cluster_sweep(batches=(64, 256), s: int = 128, k: int = 30) -> dict:
+    """K2 at each site and K1 on Gaussian (B, s, s, k) maps, at each batch,
+    with every cluster size that fits."""
+    from esa_pose_estimation_tpu_torch.experimental import cbam_fuse
+    from esa_pose_estimation_tpu_torch.ops.kernels import peak_decode as pd
+    dev = _require_cuda()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    results = {}
+
+    def row(key: str, shape: dict, r: int, chosen: int, fn, bufs, cfg):
+        results[key] = {**shape, 'ranks': r, 'ms': graph_ms(fn, bufs),
+                        'chosen': r == chosen, **cfg}
+        print(json.dumps(results[key]), flush=True)
+
+    for b in batches:
+        for h, w, c, with_res in CBAM_SITES:
+            hid = c // 16
+            x = torch.randn((b, h, w, c), generator=gen, device=dev
+                            ).to(torch.bfloat16)
+            res = (torch.randn((b, h, w, c), generator=gen, device=dev
+                               ).to(torch.bfloat16) if with_res else None)
+            fc1 = 0.3 * torch.randn((c, hid), generator=gen, device=dev)
+            fc2 = 0.3 * torch.randn((hid, c), generator=gen, device=dev)
+            spw = 0.2 * torch.randn((7, 7, 2), generator=gen, device=dev)
+            chosen = cbam_fuse.cluster_config(b, h, w, c, hid)['ranks']
+            # enough input copies to cycle through more than the 50 MB L2
+            per_call = x.numel() * 2 * (3 if with_res else 2)
+            bufs = [tuple(a.clone() if a is not None else None
+                          for a in (x, fc1, fc2, spw, res))
+                    for _ in range(max(1, math.ceil(160e6 / per_call)))]
+            for r in (1, 2, 3, 4, 5, 6, 8, 16):
+                if r > h:
+                    break
+                try:
+                    cfg = cbam_fuse.cluster_config(b, h, w, c, hid, ranks=r)
+                except RuntimeError as exc:     # does not fit: not a launch
+                    print(json.dumps({'site': [b, h, w, c], 'ranks': r,
+                                      'skipped': str(exc)}), flush=True)
+                    continue
+                row(f'cbam_b{b}_{h}x{w}x{c}_r{r}', {'site': [b, h, w, c]}, r,
+                    chosen, lambda *a, r=r: cbam_fuse._launch(*a, ranks=r),
+                    bufs, cfg)
+            del x, res, bufs
+    ax = torch.arange(s, dtype=torch.float32, device=dev)
+    for b in batches:
+        kp = torch.rand((b, k, 2), generator=gen, device=dev) * (s - 4) + 2
+        d2 = ((ax[None, None, :, None] - kp[..., 1, None, None]) ** 2
+              + (ax[None, None, None, :] - kp[..., 0, None, None]) ** 2)
+        hm = torch.exp(-d2 / 8.0).permute(0, 2, 3, 1).contiguous()
+        bufs = [(hm.clone(),) for _ in range(
+            max(1, math.ceil(160e6 / (hm.numel() * 4))))]
+        chosen = pd.cluster_config(b, s, s, k)['ranks']
+        for r in (1, 2, 4, 8, 16):
+            row(f'peak_b{b}_r{r}', {'maps': [b, s, s, k]}, r, chosen,
+                lambda a, r=r: pd._launch(a, ranks=r), bufs,
+                pd.cluster_config(b, s, s, k, ranks=r))
+        del hm, bufs
+    return results
+
+
 def flagship_experiment() -> dict:
     """The hrnet_esa batch sweep and the lane-padded variant at 256."""
     from esa_pose_estimation_tpu_torch.utils import config as cfg_mod
@@ -255,6 +333,7 @@ def main(argv=None) -> dict:
     mode.add_argument('--chain', action='store_true')
     mode.add_argument('--int8', action='store_true')
     mode.add_argument('--int8-matmul', action='store_true')
+    mode.add_argument('--cluster-sweep', action='store_true')
     args = ap.parse_args(argv)
     _require_cuda()
     if args.chain:
@@ -263,6 +342,8 @@ def main(argv=None) -> dict:
         results = int8_experiment()
     elif args.int8_matmul:
         results = int8_matmul_experiment()
+    elif args.cluster_sweep:
+        results = cluster_sweep()
     else:
         results = flagship_experiment()
     results['device'] = torch.cuda.get_device_name(0)

@@ -105,7 +105,8 @@ def decode_heatmaps_auto(heatmaps: torch.Tensor
     version for a CPU tensor."""
     lead = heatmaps.shape[:-2]
     h, w = heatmaps.shape[-2:]
-    # (..., H, W) -> (1, H, W, N) strided view, the kernel's layout
+    # (..., H, W) -> (1, H, W, N) strided view; the kernel's wrapper makes
+    # it contiguous
     nhwc = heatmaps.reshape((-1, h, w)).permute(1, 2, 0)[None]
     coords, maxvals = peak_decode(nhwc)
     return coords.reshape(lead + (2,)), maxvals.reshape(lead)
@@ -121,8 +122,9 @@ NHWC_DECODE: bool = False
 def decode_heatmaps_auto_nhwc(heatmaps: torch.Tensor
                               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Decode channels-last model output (B, S, S, K) -> (coords (B, K, 2),
-    maxvals (B, K)).  The kernel reads the maps through their strides, so
-    the serving path needs no transpose."""
+    maxvals (B, K)).  The kernel reads the network's contiguous
+    channels-last output as it is, so the serving path needs no
+    transpose."""
     if NHWC_DECODE:
         from esa_pose_estimation_tpu_torch.experimental.nhwc_decode import (
             decode_heatmaps_nhwc,
