@@ -38,6 +38,17 @@ ground truth, and times the path.  Phases:
                  decode) timed on and off
  10. eval        cli.eval_synthetic on 128 held-out frames, plain (median
                  must be <= 0.01) and with --int8
+ 11. two-stage   (a) 64 frames through pipeline.detect_and_infer with a
+                 planted detector (the targets of the true boxes): boxes
+                 within 64 px, no full-frame fallback, SPEED median <=
+                 0.01, K1 launches; (b) a seeded TinyDetector on the card
+                 against the CPU (maps rtol/atol 1e-3, boxes 1 px), then
+                 detect_and_infer timed at batch 1 and 256 beside the
+                 detect stage, one batch-256 call profiled, and the
+                 frames' host-to-device copy; (c) the 64 frames as a PNG +
+                 pickle split: cli.submit (64 finite rows of 8 fields in
+                 filename order) and cli.evaluate (speed <= 0.02, no
+                 non-finite frame) on the r5 artifact
 
 Kernel and plain times (``ms``, ``plain_ms``) are means of eager calls
 between CUDA events, host cost included, as in earlier PRs; K1 and K2 are
@@ -46,7 +57,8 @@ also timed with the same calls replayed from a CUDA graph
 ``graph_ms`` and ``plain_graph_ms``.  Any failed check raises, so the
 exit code is non-zero and the final line is not printed.  The line before
 the last is a JSON record of each kernel (launches on its main path: the
-serving call for K1 and K2, the branch-chain experiment for K3; error
+serving call for K1 and K2, the branch-chain experiment for K3; for K1
+also its launches in one detect_and_infer call; error
 against its plain version, times, bound); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -149,9 +161,10 @@ def plateau_maps(gen: torch.Generator, b: int, s: int, k: int
     return hm, (ya * s + xa).to(torch.int32)
 
 
-# the batches the main path gives K1: 1 and 256 (phase 6), 32
-# (cli/eval_synthetic's batch, phase 10), 64 (phases 5 and 9); K1 and K2
-# choose their cluster size from the batch, so each is checked
+# the batches the main path gives K1: 1 and 256 (phases 6 and 11b), 32
+# (the eval, evaluate and submit commands' batch, phases 10 and 11c), 64
+# (phases 5, 9 and 11a); K1 and K2 choose their cluster size from the
+# batch, so each is checked
 K1_BATCHES = (1, 32, 64, 256)
 
 
@@ -292,7 +305,19 @@ def check_cbam(label: str, x, fc1, fc2, spw, r) -> float:
     again = fused_cbam(x, fc1, fc2, spw, r)
     torch.cuda.synchronize()
     if not torch.equal(got, again):
-        raise AssertionError(f'K2 {label}: two launches differ')
+        # say where, and which launch a third one sides with, then fail
+        third = fused_cbam(x, fc1, fc2, spw, r)
+        torch.cuda.synchronize()
+        where = (got != again).nonzero()
+        raise AssertionError(
+            f'K2 {label}: two launches differ at {where.shape[0]} values '
+            f'(images {sorted(set(where[:, 0].tolist()))[:8]}, rows '
+            f'{sorted(set(where[:, 1].tolist()))[:16]}), max diff '
+            f'{float((got.float() - again.float()).abs().max())}, non-finite '
+            f'values {int((~torch.isfinite(got)).sum())} and '
+            f'{int((~torch.isfinite(again)).sum())}; a third '
+            f'launch equals the first {torch.equal(third, got)}, the second '
+            f'{torch.equal(third, again)}')
     got = got.float()
     want = cbam_plain(x, fc1, fc2, spw, r).float()
     # both round an f32 result to bf16; sums taken in another order can
@@ -513,7 +538,7 @@ def phase_throughput(model, pts) -> None:
     phase_profile(model, pts, frames, boxes, rgen)
 
 
-STAGES = ('crop', 'hrnet', 'decode', 'ransac_epnp', 'refine')
+STAGES = ('detect', 'crop', 'hrnet', 'decode', 'ransac_epnp', 'refine')
 
 
 K2_KERNEL = 'cbam_cluster_kernel'
@@ -526,47 +551,48 @@ def phase_profile(model, pts, frames, boxes, rgen) -> None:
     inside that span; for the call, kernel time over wall time; with K2
     on, its device kernels per forward (at most 30).  The profiler's own
     host cost slows the call, so the idle share here is an upper bound."""
+    from esa_pose_estimation_tpu_torch import pipeline
     from esa_pose_estimation_tpu_torch.models import layers
     hrnet = {}
     for fused in (False, True):
         layers.FUSED_CBAM = fused
         try:
-            hrnet[fused] = profile_call(model, pts, frames, boxes, rgen,
-                                        top=8 if not fused else 3)
+            stages = profile_call(
+                lambda: pipeline.infer_poses(model, frames, boxes, pts, rgen),
+                f'profile FUSED_CBAM={fused}', top=8 if not fused else 3)
+            hrnet[fused] = None if stages is None else stages['hrnet']
         finally:
             layers.FUSED_CBAM = False
     # the K2-per-forward check must not pass unmeasured
     if hrnet[True] is None:
         raise AssertionError('profile: no hrnet kernels recorded with '
                              'FUSED_CBAM on, so K2 per forward is unmeasured')
-    k2 = hrnet[True][2]
+    k2 = hrnet[True]['k2']
     off = ('not measured' if hrnet[False] is None else
-           f'{hrnet[False][0]:.2f} ms of kernels in {hrnet[False][1]} launches')
+           f'{hrnet[False]["kernel_ms"]:.2f} ms of kernels in '
+           f'{hrnet[False]["kernels"]} launches')
     log(f'profile hrnet stage at batch 256: FUSED_CBAM off {off}; on '
-        f'{hrnet[True][0]:.2f} ms in {hrnet[True][1]} launches, {k2} of them '
-        f'K2 (one forward)')
+        f'{hrnet[True]["kernel_ms"]:.2f} ms in {hrnet[True]["kernels"]} '
+        f'launches, {k2} of them K2 (one forward)')
     if not 0 < k2 <= 30:
         raise AssertionError(f'profile: {k2} K2 device kernels per forward '
                              '(expected 1 to 30)')
 
 
-def profile_call(model, pts, frames, boxes, rgen, top: int
-                 ) -> tuple[float, int, int] | None:
-    """Profile one call; log its stages and ``top`` kernels.  Returns the
-    hrnet stage's (kernel ms, kernel launches, K2 kernels), or None when
-    the profiler saw no device time."""
+def profile_call(call, tag: str, top: int) -> dict | None:
+    """Profile one ``call()`` (after one unprofiled warm-up call); log its
+    stages (the pipeline's record_function ranges that ran) and ``top``
+    kernels.  Returns ``{stage: {'host_ms', 'span_ms', 'kernel_ms',
+    'kernels', 'k2'}}``, or None when the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from esa_pose_estimation_tpu_torch import pipeline
-    from esa_pose_estimation_tpu_torch.models import layers
-    tag = f'profile FUSED_CBAM={layers.FUSED_CBAM}'
-    pipeline.infer_poses(model, frames, boxes, pts, rgen)
+    call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipeline.infer_poses(model, frames, boxes, pts, rgen)
+        call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
@@ -579,10 +605,12 @@ def profile_call(model, pts, frames, boxes, rgen, top: int
     log(f'{tag} batch 256: wall {wall_ms:.1f} ms under the profiler, '
         f'{len(kernels)} kernels, {busy_ms:.1f} ms of kernel time, device '
         f'idle share {1 - busy_ms / wall_ms:.3f}')
-    hrnet = None
+    stages = {}
     for name in STAGES:
         host = sum(e.time_range.elapsed_us() for e in events
                    if e.name == name and e.device_type == DeviceType.CPU)
+        if host == 0:
+            continue                 # a stage this call does not have
         spans = [e.time_range for e in dev if e.name == name]
         lo = min((r.start for r in spans), default=0.0)
         hi = max((r.end for r in spans), default=0.0)
@@ -591,9 +619,9 @@ def profile_call(model, pts, frames, boxes, rgen, top: int
         log(f'{tag} stage {name}: host {host / 1e3:.2f} ms, device span '
             f'{(hi - lo) / 1e3:.2f} ms, kernels {k_ms:.2f} ms in '
             f'{len(inside)} launches')
-        if name == 'hrnet':
-            hrnet = (k_ms, len(inside),
-                     sum(K2_KERNEL in e.name for e in inside))
+        stages[name] = {'host_ms': host / 1e3, 'span_ms': (hi - lo) / 1e3,
+                        'kernel_ms': k_ms, 'kernels': len(inside),
+                        'k2': sum(K2_KERNEL in e.name for e in inside)}
     by_name: dict[str, list[float]] = {}
     for e in kernels:
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
@@ -601,7 +629,7 @@ def profile_call(model, pts, frames, boxes, rgen, top: int
     for name, times in ranked:
         log(f'{tag} kernel {sum(times) / 1e3:8.2f} ms {len(times):5d}x '
             f'{name[:90]}')
-    return hrnet
+    return stages
 
 
 def exact_tap_chain(gen: torch.Generator, k: int, tap: tuple[int, int]
@@ -839,6 +867,251 @@ def phase_eval() -> None:
     log(f'eval: phase {time.perf_counter() - t0:.1f} s')
 
 
+class PlantedDetector(torch.nn.Module):
+    """What a perfect detector would output: the detection targets of the
+    frames' true boxes (pooled by ``downscale``) on the grid that four
+    stride-2 convs give (19x30 for 300x480), the heatmap as logits."""
+
+    def __init__(self, boxes: torch.Tensor, downscale: int = 4):
+        super().__init__()
+        self.boxes, self.downscale = boxes, downscale
+
+    def forward(self, x: torch.Tensor) -> dict:
+        from esa_pose_estimation_tpu_torch.models.detector import (
+            detection_targets,
+        )
+        hs, ws = x.shape[1:3]
+        for _ in range(4):
+            hs, ws = (hs + 1) // 2, (ws + 1) // 2
+        t = detection_targets(self.boxes / self.downscale, (hs, ws), 16)
+        h = t['heatmap']
+        logit = torch.log(torch.clamp(h, min=1e-6)
+                          / torch.clamp(1 - h, min=1e-6))
+        return {'heatmap': logit, 'offset': t['offset'], 'size': t['size']}
+
+
+def phase_planted(model, pts):
+    """11a: 64 frames through ``detect_and_infer`` with the planted
+    detector and the r5 net; returns K1's launches in that call and the
+    frames (sample) for the commands of 11c."""
+    from esa_pose_estimation_tpu_torch import pipeline
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.eval.speed_score import (
+        speed_score_from_matrices,
+    )
+    from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
+        peak_decode,
+    )
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    s = synthetic.make_sample(gen, pts, 64)
+    det = PlantedDetector(s.bbox)
+    boxes, scores = pipeline.detect_frames(det, s.image)
+    err = float((boxes - s.bbox).abs().max())
+    fallback = int((scores <= 0.05).sum())
+    log(f'two-stage planted: boxes within {err:.4g} px of the truth (limit '
+        f'64), {fallback} full-frame fallbacks (limit 0), lowest score '
+        f'{float(scores.min()):.6f}')
+    if not err <= 64 or fallback:
+        raise AssertionError(f'two-stage planted: box error {err}, '
+                             f'{fallback} fallbacks')
+    peak_decode.launches = 0
+    out = pipeline.detect_and_infer(
+        det, model, s.image, pts,
+        torch.Generator(device=DEVICE).manual_seed(SEED + 3), **SERVE_KW)
+    torch.cuda.synchronize()
+    launches = peak_decode.launches
+    if launches < 1:
+        raise AssertionError('two-stage planted: detect_and_infer launched '
+                             'no K1 kernel')
+    sc = speed_score_from_matrices(out.R, out.trans, s.quat,
+                                   s.trans).speed.cpu().tolist()
+    med = statistics.median(sc)
+    log(f'two-stage planted: detect_and_infer on {len(sc)} frames, K1 '
+        f'launches {launches}, SPEED median {med:.5f} mean '
+        f'{statistics.fmean(sc):.5f} worst {max(sc):.5f} (median limit 0.01)')
+    if not med <= 0.01:
+        raise AssertionError(f'two-stage planted: SPEED median {med} > 0.01')
+    return launches, s
+
+
+# the seeded detector's maps on the card against the CPU: f32 both (the
+# port keeps TF32 off), convolutions summed in other orders
+DET_RTOL, DET_ATOL, DET_BOX_PX = 1e-3, 1e-3, 1.0
+# (batch, timed calls) of the two-stage timing
+TWO_STAGE_RUNS = ((1, 5), (256, 3))
+
+
+def phase_seeded(model, pts) -> None:
+    """11b: a seeded TinyDetector (width 32, stride 16, downscale 4) on
+    the card against the same weights on the CPU; then detect_and_infer
+    timed at batch 1 and 256 beside the detect stage alone, one batch-256
+    call profiled, and the host-to-device copy of the uint8 frames."""
+    import copy
+
+    from esa_pose_estimation_tpu_torch import pipeline
+    from esa_pose_estimation_tpu_torch.core import camera
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.models.detector import (
+        TinyDetector,
+        decode_detections,
+    )
+    det_cpu = TinyDetector(width=32, stride=16).init_weights(
+        torch.Generator().manual_seed(SEED + 9)).eval()
+    det = copy.deepcopy(det_cpu).to(DEVICE, memory_format=torch.channels_last)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    s = synthetic.make_sample(gen, pts, 16)
+    # sensor-like noise, so that no two cells of the maps tie exactly
+    noisy = torch.clamp(s.image + 8.0 * torch.rand(s.image.shape,
+                                                   generator=gen,
+                                                   device=DEVICE), 0, 255)
+    top = max(b for b, _ in TWO_STAGE_RUNS)
+    frames = noisy.to(torch.uint8).repeat(-(-top // 16), 1, 1)[:top]
+    f4 = frames[:4]
+    with torch.no_grad():
+        x = pipeline.downsample_frames(f4, 4)[..., None]
+        got = det(x)
+        want = det_cpu(x.cpu())
+    worst = 0.0
+    for k in ('heatmap', 'offset', 'size'):
+        g, w = got[k].cpu(), want[k]
+        worst = max(worst, float((g - w).abs().max()))
+        if not torch.allclose(g, w, rtol=DET_RTOL, atol=DET_ATOL):
+            raise AssertionError(f'seeded detector {k}: card and CPU differ '
+                                 f'by {float((g - w).abs().max())}')
+    b_card, s_card = pipeline.detect_frames(det, f4)
+    b_cpu, s_cpu = pipeline.detect_frames(det_cpu, f4.cpu())
+    box_err = float((b_card.cpu() - b_cpu).abs().max())
+    valid_same = torch.equal(s_card.cpu() > 0.05, s_cpu > 0.05)
+    # seeded weights may leave every score under detect_frames' 0.05 (a
+    # full-frame fallback); the decode's top 8 boxes at threshold 0 are
+    # compared too, scaled to full-frame pixels
+    top_card = decode_detections(got, 16, score_threshold=0.0,
+                                 max_outputs=8)
+    top_cpu = decode_detections(want, 16, score_threshold=0.0,
+                                max_outputs=8)
+    top_err = 4.0 * float((top_card[0].cpu() - top_cpu[0]).abs().max())
+    top_same = torch.equal(top_card[2].cpu(), top_cpu[2])
+    log(f'seeded detector on 4 frames (maps {tuple(got["heatmap"].shape)}): '
+        f'maps max abs diff card vs CPU {worst:.3g} (rtol {DET_RTOL}, atol '
+        f'{DET_ATOL}); detect_frames boxes max diff {box_err:.4g} px, valid '
+        f'flags equal {valid_same}, scores {s_card.cpu().tolist()}; top-8 '
+        f'boxes at threshold 0 max diff {top_err:.4g} px, valid flags equal '
+        f'{top_same} (limit {DET_BOX_PX} px)')
+    if not (box_err <= DET_BOX_PX and top_err <= DET_BOX_PX and valid_same
+            and top_same):
+        raise AssertionError(f'seeded detector: boxes differ by {box_err} '
+                             f'and {top_err} px, valid flags equal '
+                             f'{valid_same} and {top_same}')
+
+    rgen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    for batch, iters in TWO_STAGE_RUNS:
+        f = frames[:batch].contiguous()
+        pipeline.detect_and_infer(det, model, f, pts, rgen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            pipeline.detect_and_infer(det, model, f, pts, rgen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        for _ in range(iters):
+            pipeline.detect_frames(det, f)
+        torch.cuda.synchronize()
+        d_ms = (time.perf_counter() - t1) / iters * 1e3
+        log(f'two-stage throughput: batch {batch}: {batch * iters / dt:.1f} '
+            f'img/s ({dt / iters * 1e3:.1f} ms per detect_and_infer call; '
+            f'detect_frames alone {d_ms:.2f} ms per call)')
+    # where no K is given, the serving tail copies SPEED_K to the card,
+    # a copy that makes the host wait for the queued kernels (the
+    # detector's among them); the same call at the last batch with K
+    # already on the card shows what that wait costs
+    K = torch.as_tensor(camera.SPEED_K, dtype=torch.float32, device=DEVICE)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        pipeline.detect_and_infer(det, model, f, pts, rgen, K=K)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / iters
+    log(f'two-stage throughput: batch {f.shape[0]} with K on the card: '
+        f'{f.shape[0] / dt:.1f} img/s ({dt * 1e3:.1f} ms per call)')
+    profile_call(lambda: pipeline.detect_and_infer(det, model, frames, pts,
+                                                   rgen),
+                 'profile two-stage', top=6)
+
+    host = frames.cpu()
+    pinned = host.pin_memory()
+    for label, src in (('pageable', host), ('pinned', pinned)):
+        src.to(DEVICE, non_blocking=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            src.to(DEVICE, non_blocking=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        log(f'host to device, {top} uint8 frames ({host.numel() / 1e6:.0f} '
+            f'MB) from {label} memory: {ms:.1f} ms, '
+            f'{host.numel() / ms / 1e6:.1f} GB/s (not in the device stages)')
+    del host, pinned, frames
+    torch.cuda.empty_cache()
+
+
+def phase_commands(s, pts) -> None:
+    """11c: the frames of 11a as a labelled PNG + pickle split in a
+    temporary directory; cli.submit and cli.evaluate on the r5 artifact."""
+    import csv
+    import pickle
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from esa_pose_estimation_tpu_torch.cli import evaluate, submit
+    from esa_pose_estimation_tpu_torch.core import camera
+    t0 = time.perf_counter()
+    frames = s.image.to(torch.uint8).cpu().numpy()
+    n = frames.shape[0]
+    R = camera.quat_to_rotmat(s.quat).cpu().numpy()
+    arrays = {k: getattr(s, k).cpu().numpy()
+              for k in ('bbox', 'keypoints_2d', 'quat', 'trans')}
+    with tempfile.TemporaryDirectory() as root:
+        recs = []
+        for i in range(n):
+            name = f'img{(i * 37) % n:06d}.png'     # not in file order
+            Image.fromarray(frames[i]).save(f'{root}/{name}',
+                                            compress_level=1)
+            recs.append({'rgb_pth': name, 'bbox': arrays['bbox'][i],
+                         'sift': arrays['keypoints_2d'][i],
+                         'sift3d': pts.cpu().numpy(),
+                         'K': camera.SPEED_K.astype('float32'),
+                         'RT': np.concatenate(
+                             [R[i], arrays['trans'][i][:, None]], 1),
+                         'qua': arrays['quat'][i]})
+        with open(f'{root}/split.pkl', 'wb') as f:
+            pickle.dump(recs, f)
+        t_write = time.perf_counter() - t0
+        common = ['--artifact', ARTIFACT, '--test-pkl', f'{root}/split.pkl',
+                  '--image-root', root, '--workdir', root]
+        t1 = time.perf_counter()
+        path = submit.main(common + ['--suffix', 'smoke'])
+        t_submit = time.perf_counter() - t1
+        with open(path) as f:
+            rows = list(csv.reader(f))
+        names = [r[0] for r in rows]
+        values = [float(v) for r in rows for v in r[1:]]
+        if not (len(rows) == n and all(len(r) == 8 for r in rows)
+                and names == sorted(names)
+                and all(math.isfinite(v) for v in values)):
+            raise AssertionError(f'submit: {len(rows)} rows, not {n} finite '
+                                 'rows of 8 fields in filename order')
+        t1 = time.perf_counter()
+        res = evaluate.main(common)
+        t_eval = time.perf_counter() - t1
+    log(f'commands: submit wrote {n} rows of 8 finite fields in filename '
+        f'order ({t_submit:.1f} s); evaluate {json.dumps(res)} ({t_eval:.1f} s; '
+        f'limits speed 0.02, nonfinite 0); split written in {t_write:.1f} s')
+    if not (res['speed'] <= 0.02 and res['nonfinite'] == 0):
+        raise AssertionError(f'evaluate: {res}')
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_device()
@@ -857,12 +1130,18 @@ def main() -> None:
     k3 = phase_k3()
     phase_levers(model, pts, frames, base)
     phase_eval()
+    t11 = time.perf_counter()
+    k1['launches_two_stage'], planted = phase_planted(model, pts)
+    phase_seeded(model, pts)
+    phase_commands(planted, pts)
+    log(f'two-stage and commands: phase {time.perf_counter() - t11:.1f} s')
     log(f'total: {time.perf_counter() - t_start:.1f} s')
     # graph_ms / plain_graph_ms (K1 and K2): the same calls replayed from a
-    # CUDA graph, beside ms / plain_ms by eager calls as in earlier PRs
+    # CUDA graph, beside ms / plain_ms by eager calls as in earlier PRs;
+    # launches_two_stage (K1): its launches in one detect_and_infer call
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
-            'graph_ms', 'plain_graph_ms')
+            'graph_ms', 'plain_graph_ms', 'launches_two_stage')
     print(json.dumps({'kernels': [{k: rec[k] for k in keys if k in rec}
                                   for rec in (k1, k2, k3)]}))
     print(json.dumps({'ok': True, 'device': {

@@ -102,28 +102,11 @@ def main(argv=None) -> dict:
         speed_score_from_matrices,
     )
     from esa_pose_estimation_tpu_torch.models import layers
-    from esa_pose_estimation_tpu_torch.utils import config as cfg_mod
-    from esa_pose_estimation_tpu_torch.utils.artifact import (
-        load_hrnet_artifact,
-        read_meta,
-    )
+    from esa_pose_estimation_tpu_torch.utils.artifact import load_cli_artifact
 
-    # the artifact's recorded config against the flags: a mismatch would
-    # otherwise fail deep inside the strict weight load
-    meta = read_meta(args.artifact)
-    want_model = 'hrnet_tiny' if args.tiny else 'hrnet_esa'
-    if meta.get('model') and meta['model'] != want_model:
-        raise SystemExit(
-            f"artifact {args.artifact} was exported from {meta['model']!r} "
-            f"but the flags select {want_model!r} "
-            f"({'drop' if args.tiny else 'pass'} --tiny)")
-    if meta.get('crop_size') and meta['crop_size'] != args.crop_size:
-        raise SystemExit(f"artifact {args.artifact} expects --crop-size "
-                         f"{meta['crop_size']}, got {args.crop_size}")
-    model_cfg = cfg_mod.hrnet_tiny() if args.tiny else cfg_mod.hrnet_esa()
     dev = torch.device(args.device)
-    model = load_hrnet_artifact(args.artifact, cfg=model_cfg,
-                                dtype=torch.bfloat16, device=dev)
+    model, meta = load_cli_artifact(args.artifact, args.tiny,
+                                    args.crop_size, dev)
     print(f'# loaded artifact {args.artifact} ({meta})')
     points_3d = synthetic.spacecraft_points(device=dev)
 

@@ -1,7 +1,7 @@
 """Utilization experiments on one NVIDIA H100.
 
     python -m esa_pose_estimation_tpu_torch.cli.mfu_experiments [--chain |
-        --int8 | --int8-matmul | --cluster-sweep]
+        --int8 | --int8-matmul | --cluster-sweep | --repeat]
 
 Port of the JAX package's ``scripts/mfu_experiments.py``.  Every mode times
 on the card with CUDA events and reports its share of the card's bf16
@@ -35,6 +35,11 @@ CUDA device.  Modes:
   and how many such clusters the card holds at once.  It times the device
   by CUDA-graph replay (``utils/timing.graph_ms``), so the host's cost per
   call does not count.
+* ``--repeat``: determinism of the two cluster kernels.  The fused CBAM
+  kernel at the five sites and the peak-decode kernel on Gaussian maps,
+  at every batch serving gives them (1, 64, 256; 1, 32, 64, 256), each
+  launched many times on one input: the count of launches whose output
+  is not bit-equal to the first.  Nothing is timed.
 
 Each mode prints one JSON line per measurement and a last line with all.
 """
@@ -301,6 +306,47 @@ def cluster_sweep(batches=(64, 256), s: int = 128, k: int = 30) -> dict:
     return results
 
 
+def repeat_experiment(cbam_batches=(1, 64, 256),
+                      peak_batches=(1, 32, 64, 256)) -> dict:
+    """Launches of K2 and K1 on one input that differ from the first:
+    60 launches at batch 1 and 64, 20 at 256."""
+    from esa_pose_estimation_tpu_torch.experimental import cbam_fuse
+    from esa_pose_estimation_tpu_torch.ops.kernels import peak_decode as pd
+    dev = _require_cuda()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    results = {}
+
+    def count(key: str, fn, args: tuple, n: int):
+        first = fn(*args)
+        differ = 0
+        for _ in range(n):
+            out = fn(*args)
+            torch.cuda.synchronize()
+            differ += not all(torch.equal(a, b) for a, b in zip(
+                out if isinstance(out, tuple) else (out,),
+                first if isinstance(first, tuple) else (first,)))
+        results[key] = {'launches': n, 'differ': differ}
+        print(json.dumps({key: results[key]}), flush=True)
+
+    for b in cbam_batches:
+        for h, w, c, _ in CBAM_SITES:
+            hid = c // 16
+            x, res = (torch.randn((b, h, w, c), generator=gen, device=dev
+                                  ).to(torch.bfloat16) for _ in range(2))
+            weights = (0.3 * torch.randn((c, hid), generator=gen, device=dev),
+                       0.3 * torch.randn((hid, c), generator=gen, device=dev),
+                       0.2 * torch.randn((7, 7, 2), generator=gen,
+                                         device=dev))
+            for r in (res, None):
+                count(f'cbam_b{b}_{h}x{w}x{c}_res{int(r is not None)}',
+                      cbam_fuse._launch, (x, *weights, r), 20 if b >= 256
+                      else 60)
+    for b in peak_batches:
+        hm = torch.rand((b, 128, 128, 30), generator=gen, device=dev)
+        count(f'peak_b{b}', pd._launch, (hm,), 20 if b >= 256 else 60)
+    return results
+
+
 def flagship_experiment() -> dict:
     """The hrnet_esa batch sweep and the lane-padded variant at 256."""
     from esa_pose_estimation_tpu_torch.utils import config as cfg_mod
@@ -334,6 +380,7 @@ def main(argv=None) -> dict:
     mode.add_argument('--int8', action='store_true')
     mode.add_argument('--int8-matmul', action='store_true')
     mode.add_argument('--cluster-sweep', action='store_true')
+    mode.add_argument('--repeat', action='store_true')
     args = ap.parse_args(argv)
     _require_cuda()
     if args.chain:
@@ -344,6 +391,8 @@ def main(argv=None) -> dict:
         results = int8_matmul_experiment()
     elif args.cluster_sweep:
         results = cluster_sweep()
+    elif args.repeat:
+        results = repeat_experiment()
     else:
         results = flagship_experiment()
     results['device'] = torch.cuda.get_device_name(0)

@@ -1,21 +1,23 @@
 """The serving pipeline: frames -> boxes -> crops -> keypoints -> pose.
 
 Torch port of the JAX package's ``pipeline.py`` (``infer_poses``,
-``infer_poses_from_crops``).  Stages:
+``infer_poses_from_crops``, ``make_pipeline``, and the two-stage
+``detect_frames`` / ``detect_and_infer``).  Stages:
 
-  1. square crop x1.05 + resize   -- ops/crop.py (data_load4.py:110-166)
-  2. HRNet heatmaps               -- models/hrnet.py (seg_hrnet3 forward)
-  3. peak decode + log-Taylor     -- ops/peak.py -> the CUDA kernel on the card
-  4. confidence top-k select      -- demo.py:195-200 / val.py:172-177
-  5. RANSAC-EPnP + dual LM refine -- ops/pnp.py
-  6. quaternion output            -- demo.py:301-303
+  1. detect (optional)            -- models/detector.py on pooled frames,
+                                     or given boxes (simple_detect.py role)
+  2. square crop x1.05 + resize   -- ops/crop.py (data_load4.py:110-166)
+  3. HRNet heatmaps               -- models/hrnet.py (seg_hrnet3 forward)
+  4. peak decode + log-Taylor     -- ops/peak.py -> the CUDA kernel on the card
+  5. confidence top-k select      -- demo.py:195-200 / val.py:172-177
+  6. RANSAC-EPnP + dual LM refine -- ops/pnp.py
+  7. quaternion output            -- demo.py:301-303
 
 Every stage follows the device of its inputs and runs batched with no host
 read-back.  Each stage runs inside a ``torch.profiler.record_function``
-range (``crop``, ``hrnet``, ``decode``, ``ransac_epnp``, ``refine``) so a
-profiler trace attributes time per stage; with no profiler running a
-range costs a few microseconds of host time.  The detector stage waits
-for a later slice.
+range (``detect``, ``crop``, ``hrnet``, ``decode``, ``ransac_epnp``,
+``refine``) so a profiler trace attributes time per stage; with no
+profiler running a range costs a few microseconds of host time.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from torch.profiler import record_function
 
 from esa_pose_estimation_tpu_torch.core import camera
 from esa_pose_estimation_tpu_torch.core.camera import rotmat_to_quat
+from esa_pose_estimation_tpu_torch.models.detector import decode_detections
 from esa_pose_estimation_tpu_torch.ops import crop as crop_ops
 from esa_pose_estimation_tpu_torch.ops import peak as peak_ops
 from esa_pose_estimation_tpu_torch.ops import pnp as pnp_mod
@@ -157,3 +160,79 @@ def infer_poses_from_crops(model, crops: torch.Tensor, rates: torch.Tensor,
                       keypoints_2d=uncropped, confidences=maxvals,
                       selected=sel, heatmaps=hm, rates=rates,
                       origins=origins)
+
+
+def make_pipeline(model, points_3d: torch.Tensor,
+                  K: torch.Tensor | None = None, **kwargs):
+    """Returns fn(frames, bboxes, generator=None) -> PoseOutput:
+    :func:`infer_poses` with the model, the keypoint model and the serving
+    keywords bound (the JAX ``make_jitted_pipeline``, with no jit)."""
+    def run(frames, bboxes, generator=None):
+        return infer_poses(model, frames, bboxes, points_3d, generator, K=K,
+                           **kwargs)
+    return run
+
+
+def downsample_frames(frames: torch.Tensor, factor: int) -> torch.Tensor:
+    """Average-pool (B, H, W) frames by an integer factor (the detector's
+    input), as float32.  H and W must divide by ``factor`` (1920x1200
+    divides by 2, 4 and 8)."""
+    frames = frames.to(torch.float32)     # loaders may ship uint8 frames
+    if factor == 1:
+        return frames
+    b, h, w = frames.shape
+    return frames.reshape(b, h // factor, factor,
+                          w // factor, factor).mean(dim=(2, 4))
+
+
+@torch.no_grad()
+def detect_frames(detector, frames: torch.Tensor, detector_stride: int = 16,
+                  detector_downscale: int = 4, box_expand: float = 1.0
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Frames (B, H, W) -> one full-frame-pixels box (B, 4) per image, and
+    its score (B,).
+
+    ``detector`` (a :class:`~models.detector.TinyDetector` on the frames'
+    device) runs on ``detector_downscale``x average-pooled frames: the
+    spacecraft spans hundreds of pixels, so a quarter-resolution pass keeps
+    the localisation while cutting the detector's work 16x.  Falls back to
+    the full frame when no box clears the 0.05 score threshold.
+    ``box_expand`` grows each box about its center before the frame clip
+    (a margin for a tight box; the crop adds the reference's x1.05).
+    """
+    with record_function('detect'):
+        ds = downsample_frames(frames, detector_downscale)
+        det_out = detector(ds[..., None])
+        boxes, scores, valid = decode_detections(det_out, detector_stride,
+                                                 max_outputs=1,
+                                                 score_threshold=0.05)
+        h, w = frames.shape[1], frames.shape[2]
+        up = boxes[:, 0, :] * float(detector_downscale)
+        if box_expand != 1.0:
+            c = (up[:, :2] + up[:, 2:]) / 2.0
+            half = (up[:, 2:] - up[:, :2]) / 2.0 * box_expand
+            up = torch.cat([c - half, c + half], dim=-1)
+        # clip, or the full frame where no box is valid, column by column
+        # with Python scalars: a small host tensor copied to the card
+        # would make the host wait for the detector's kernels
+        hi = (w - 1.0, h - 1.0, w - 1.0, h - 1.0)
+        full = (0.0, 0.0, w - 1.0, h - 1.0)
+        bboxes = torch.stack(
+            [torch.where(valid[:, 0], torch.clamp(up[:, j], 0.0, hi[j]),
+                         full[j]) for j in range(4)], dim=-1)
+    return bboxes, scores[:, 0]
+
+
+@torch.no_grad()
+def detect_and_infer(detector, model, frames: torch.Tensor,
+                     points_3d: torch.Tensor,
+                     generator: torch.Generator | None = None,
+                     detector_stride: int = 16, detector_downscale: int = 4,
+                     **kwargs) -> PoseOutput:
+    """Two-stage pipeline, the on-device detector supplying the boxes
+    (reference BASELINE config 3: detect -> crop -> keypoint).  ``kwargs``
+    go to :func:`infer_poses`."""
+    bboxes, _ = detect_frames(detector, frames, detector_stride,
+                              detector_downscale)
+    return infer_poses(model, frames, bboxes, points_3d, generator,
+                       **kwargs)

@@ -107,6 +107,14 @@ def _config_for(meta: dict, cfg):
     return configs[model]()
 
 
+def _target_device(device, who: str) -> torch.device:
+    device = torch.device('cuda' if device is None else device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(f'{who}: cuda requested but no CUDA device is '
+                           "available (pass device='cpu')")
+    return device
+
+
 def load_hrnet_artifact(path: str, cfg=None, dtype=torch.bfloat16,
                         device=None):
     """Artifact -> HRNet in eval mode.
@@ -118,12 +126,43 @@ def load_hrnet_artifact(path: str, cfg=None, dtype=torch.bfloat16,
     """
     from esa_pose_estimation_tpu_torch.models.hrnet import HRNet
 
-    device = torch.device('cuda' if device is None else device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError('load_hrnet_artifact: cuda requested but no CUDA '
-                           "device is available (pass device='cpu')")
+    device = _target_device(device, 'load_hrnet_artifact')
     variables, meta = read_artifact(path)
     model = HRNet(_config_for(meta, cfg), dtype=dtype)
+    model.load_state_dict(from_jax_variables(variables), strict=True)
+    model = model.to(device=device, memory_format=torch.channels_last)
+    return model.eval()
+
+
+def load_cli_artifact(path: str, tiny: bool, crop_size: int, device):
+    """The command-line tools' weight load: the artifact's recorded model
+    and crop size are checked against the flags (a mismatch exits with a
+    message, where it would otherwise fail deep inside the strict load),
+    then the bf16 HRNet goes to ``device``.  Returns ``(model, meta)``."""
+    meta = read_meta(path)
+    want = 'hrnet_tiny' if tiny else 'hrnet_esa'
+    if meta.get('model') and meta['model'] != want:
+        raise SystemExit(
+            f"artifact {path} was exported from {meta['model']!r} but the "
+            f"flags select {want!r} ({'drop' if tiny else 'pass'} --tiny)")
+    if meta.get('crop_size') and meta['crop_size'] != crop_size:
+        raise SystemExit(f"artifact {path} expects --crop-size "
+                         f"{meta['crop_size']}, got {crop_size}")
+    cfg = cfg_mod.hrnet_tiny() if tiny else cfg_mod.hrnet_esa()
+    return load_hrnet_artifact(path, cfg=cfg, dtype=torch.bfloat16,
+                               device=device), meta
+
+
+def load_detector(variables, width: int = 32, stride: int = 16,
+                  device=None):
+    """Flax detector variables ``{'params': ..., 'batch_stats': ...}``
+    (numpy leaves) -> a float32 :class:`~models.detector.TinyDetector` in
+    eval mode (strict load).  It goes to ``cuda`` unless ``device`` says
+    otherwise; asking for ``cuda`` without one raises."""
+    from esa_pose_estimation_tpu_torch.models.detector import TinyDetector
+
+    device = _target_device(device, 'load_detector')
+    model = TinyDetector(width=width, stride=stride)
     model.load_state_dict(from_jax_variables(variables), strict=True)
     model = model.to(device=device, memory_format=torch.channels_last)
     return model.eval()

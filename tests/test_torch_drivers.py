@@ -1,0 +1,376 @@
+"""The offline commands of the port: SPEED ingestion (``data/speed.py``),
+the submission writer, ``eval/eval_cache.py``, and the ``cli/evaluate`` and
+``cli/submit`` commands, against the JAX package on the same files.
+
+Tolerances:
+- the submission CSV: byte for byte;
+- records and ``BatchLoader`` batches: every array equal, names and batch
+  keys equal (ragged last batch, labelled and unlabelled records mixed);
+- ``EvalCache`` crops atol 1e-3 on 0-255 values (as ``test_torch_crop``),
+  origins, rates and labels exactly;
+- the commands on the r5 weights, on four 1920x1200 frames 10-12 m deep
+  written as PNGs.  The JAX side reads the same weights from an orbax
+  ``last`` checkpoint that the test writes, and builds its network in f32
+  (see ``jax_f32``); the port serves bf16, as on the card.  The RANSAC
+  draws differ between the packages (``torch.Generator`` against
+  ``PRNGKey``).  Measured on this split: the evaluation scores differ by
+  at most 2.0e-4 and the pixel error by 1.8e-3 px; the submitted poses by
+  3.0e-4 rad and 2.1e-5 relative translation.  The limits are 1e-3 on
+  every score, 1e-2 px, 2e-3 rad and 2e-3 relative.
+"""
+
+import csv
+import json
+import os
+import pickle
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from esa_pose_estimation_tpu.cli import evaluate as jevaluate
+from esa_pose_estimation_tpu.cli import submit as jsubmit
+from esa_pose_estimation_tpu.core.camera import SPEED_K
+from esa_pose_estimation_tpu.data import speed as jspeed
+from esa_pose_estimation_tpu.data import synthetic as jsyn
+from esa_pose_estimation_tpu.eval import eval_cache as jcache
+from esa_pose_estimation_tpu.eval import evaluator as jevaluator
+from esa_pose_estimation_tpu.eval import submission as jsubmission
+from esa_pose_estimation_tpu.models import HRNet as JaxHRNet
+from esa_pose_estimation_tpu.train import state as jstate
+from esa_pose_estimation_tpu.train.checkpoint import CheckpointManager
+from esa_pose_estimation_tpu.utils import config as jax_cfg
+from esa_pose_estimation_tpu.utils.artifact import load_inference_artifact
+from esa_pose_estimation_tpu_torch.cli import evaluate as tevaluate
+from esa_pose_estimation_tpu_torch.cli import submit as tsubmit
+from esa_pose_estimation_tpu_torch.core.camera import quat_to_rotmat
+from esa_pose_estimation_tpu_torch.data import speed as tspeed
+from esa_pose_estimation_tpu_torch.data import synthetic as tsyn
+from esa_pose_estimation_tpu_torch.eval import eval_cache as tcache
+from esa_pose_estimation_tpu_torch.eval import evaluator as tevaluator
+from esa_pose_estimation_tpu_torch.eval import submission as tsubmission
+
+ARTIFACT = 'artifacts/esa_syn_r5.npz'
+
+
+def write_split(root, frames, records, names):
+    """PNG frames (uint8 by truncation) and a pickle of ``records`` under
+    ``root``; returns the pickle's path."""
+    from PIL import Image
+    os.makedirs(root, exist_ok=True)
+    for frame, name in zip(frames, names):
+        Image.fromarray(np.asarray(frame).astype(np.uint8)).save(
+            os.path.join(root, name), 'PNG')
+    path = os.path.join(root, 'split.pkl')
+    with open(path, 'wb') as f:
+        pickle.dump(records, f)
+    return path
+
+
+def labelled_record(name, bbox, kp2d, pts, quat, trans):
+    R = quat_to_rotmat(torch.as_tensor(np.asarray(quat))).numpy()
+    return {'rgb_pth': name, 'bbox': np.asarray(bbox, np.float32),
+            'sift': np.asarray(kp2d, np.float32),
+            'sift3d': np.asarray(pts, np.float32),
+            'K': np.asarray(SPEED_K, np.float32),
+            'RT': np.concatenate([R, np.asarray(trans, np.float32)[:, None]],
+                                 1),
+            'qua': np.asarray(quat, np.float32)}
+
+
+@pytest.fixture(scope='module')
+def split(tmp_path_factory):
+    """Four full-size frames 10-12 m deep (the solver's well-observed
+    range), as a labelled pickle + PNG split: JAX poses, keypoints and
+    boxes, the frames rendered from those keypoints by the port."""
+    pts = jsyn.spacecraft_points()
+    keys = jax.random.split(jax.random.PRNGKey(11), 64)
+    _, t = jax.vmap(jsyn.random_pose)(keys)
+    pick = [i for i, z in enumerate(np.asarray(t)[:, 2]) if 10 <= z <= 12][:4]
+    s = jax.vmap(lambda k: jsyn.make_sample(k, pts, render=False))(
+        keys[np.array(pick)])
+    s = jax.tree.map(np.asarray, s)
+    frames = tsyn.render_frame(torch.from_numpy(s.keypoints_2d)).numpy()
+    names = [f'img{i:06d}.png' for i in (3, 1, 2, 0)]   # not in file order
+    recs = [labelled_record(n, s.bbox[i], s.keypoints_2d[i], pts, s.quat[i],
+                            s.trans[i]) for i, n in enumerate(names)]
+    root = str(tmp_path_factory.mktemp('split'))
+    return write_split(root, frames, recs, names), root, s
+
+
+def _r5_train_state(cfg=None, steps_per_epoch=1000):
+    """A JAX train state holding the r5 artifact's weights (the tree and
+    the optimizer state ``create_train_state`` builds)."""
+    variables, _ = load_inference_artifact(ARTIFACT)
+    tx = optax.adam(jstate.lr_schedule(
+        cfg or jax_cfg.TrainConfig(crop_size=128), steps_per_epoch))
+    return jstate.TrainState.create(apply_fn=None,
+                                    params=variables['params'],
+                                    batch_stats=variables['batch_stats'],
+                                    tx=tx)
+
+
+@pytest.fixture(scope='module')
+def jax_workdir(tmp_path_factory):
+    """An orbax ``last`` checkpoint holding the r5 artifact's weights, for
+    the JAX commands (the port reads the artifact itself)."""
+    wd = str(tmp_path_factory.mktemp('jax_run'))
+    CheckpointManager(os.path.join(wd, 'net_esa')).save(
+        'last', _r5_train_state(), 0)
+    return wd
+
+
+@pytest.fixture
+def jax_f32(monkeypatch):
+    """The JAX commands build their network in f32 here: the bf16 one
+    takes about 80 s to compile on the CPU, f32 about 30.  Flax keeps the
+    parameters in f32 either way, so the checkpoint is the same.  Their
+    restore template is built from the artifact instead of by an eager
+    ``model.init`` (41 s on the CPU); the restore overwrites it with the
+    checkpoint's values."""
+    def f32_hrnet(cfg, dtype=None):
+        return JaxHRNet(cfg, dtype=jnp.float32)
+
+    def template(model, cfg, rng, input_shape, steps_per_epoch=1000):
+        return _r5_train_state(cfg, steps_per_epoch)
+    monkeypatch.setattr(jevaluate, 'HRNet', f32_hrnet)
+    monkeypatch.setattr(jsubmit, 'HRNet', f32_hrnet)
+    monkeypatch.setattr(jstate, 'create_train_state', template)
+
+
+def test_evaluate_main_matches_jax(split, jax_workdir, jax_f32, tmp_path):
+    pkl, root, _ = split
+    common = ['--test-pkl', pkl, '--image-root', root, '--batch-size', '4']
+    want = jevaluate.main(['--workdir', jax_workdir, '--checkpoint', 'last']
+                          + common)
+    got = tevaluate.main(['--artifact', ARTIFACT, '--workdir', str(tmp_path),
+                          '--device', 'cpu'] + common)
+    assert set(got) == set(want) and got['nonfinite'] == 0
+    for k, tol in (('score_t', 1e-3), ('score_r', 1e-3), ('speed', 1e-3),
+                   ('pix_err', 1e-2)):
+        assert abs(got[k] - want[k]) <= tol, (k, got[k], want[k])
+    assert got['speed'] <= 0.02
+    jrow = open(os.path.join(jax_workdir, 'load', 'load_esa.txt')
+                ).read().split('\n')[-2].split('\t')
+    trow = open(tmp_path / 'load' / 'load_esa.txt').read().strip().split('\t')
+    assert trow[:2] == ['esa', 'esa_syn_r5.npz'] and jrow[0] == 'esa'
+    np.testing.assert_allclose([float(v) for v in trow[2:]],
+                               [float(v) for v in jrow[2:]], atol=1e-2)
+
+
+def test_submit_main_matches_jax(split, jax_workdir, jax_f32, tmp_path):
+    """With the r5 net's own crop rule and normalisation: under the
+    submission defaults (the 'val' rule, mean 0.485) the r5 net misplaces
+    keypoints on two of these frames in both packages, and those poses
+    then differ by the RANSAC draws alone."""
+    pkl, root, s = split
+    common = ['--test-pkl', pkl, '--image-root', root, '--batch-size', '4',
+              '--crop-rule', 'train', '--norm-mean', '0.449']
+    jpath = jsubmit.main(['--workdir', jax_workdir, '--checkpoint', 'last',
+                          '--suffix', 'jax'] + common)
+    tpath = tsubmit.main(['--artifact', ARTIFACT, '--workdir', str(tmp_path),
+                          '--suffix', 'torch', '--device', 'cpu'] + common)
+    jrows = list(csv.reader(open(jpath)))
+    trows = list(csv.reader(open(tpath)))
+    assert len(trows) == 4 and all(len(r) == 8 for r in trows)
+    assert [r[0] for r in trows] == [r[0] for r in jrows] == \
+        sorted(r[0] for r in trows)
+    tv = np.array([[float(v) for v in r[1:]] for r in trows])
+    jv = np.array([[float(v) for v in r[1:]] for r in jrows])
+    assert np.isfinite(tv).all()
+    ang = 2 * np.arccos(np.clip(np.abs((tv[:, :4] * jv[:, :4]).sum(-1)),
+                                0, 1))
+    rel = (np.linalg.norm(tv[:, 4:] - jv[:, 4:], axis=-1)
+           / np.linalg.norm(jv[:, 4:], axis=-1))
+    assert ang.max() <= 2e-3 and rel.max() <= 2e-3, (ang, rel)
+
+
+def test_submit_defaults_are_the_jax_ones(monkeypatch, tmp_path, split):
+    """The serving keywords run_partition binds, under the default flags
+    and with --flip-tta, and both partitions in the CSV."""
+    pkl, root, _ = split
+    seen = []
+    real = tsubmit.make_pipeline
+
+    def spy(model, points_3d, **kw):
+        seen.append(kw)
+        return real(model, points_3d, **{**kw, 'n_hypotheses': 4,
+                                        'lm_iters': 1})
+    monkeypatch.setattr(tsubmit, 'make_pipeline', spy)
+    path = tsubmit.main(['--artifact', ARTIFACT, '--workdir', str(tmp_path),
+                         '--test-pkl', pkl, '--real-test-pkl', pkl,
+                         '--image-root', root, '--batch-size', '3',
+                         '--device', 'cpu', '--flip-tta', '--suffix', 's'])
+    assert seen == [dict(crop_size=128, conf_threshold=0.8, min_keypoints=24,
+                         norm_mean=0.485, crop_rule='val',
+                         flip_tta=True)] * 2
+    rows = list(csv.reader(open(path)))
+    assert len(rows) == 8 and [r[0] for r in rows[:4]] == \
+        [r[0] for r in rows[4:]]
+    assert np.isfinite(np.array([[float(v) for v in r[1:]]
+                                 for r in rows])).all()
+
+
+def test_submission_csv_bytes_equal(tmp_path):
+    rng = np.random.default_rng(0)
+    writers = (jsubmission.SubmissionWriter(), tsubmission.SubmissionWriter())
+    names = [f'img{i:06d}.jpg' for i in rng.permutation(7)]
+    q = rng.normal(size=(7, 4)).astype(np.float32)
+    t = rng.normal(size=(7, 3)).astype(np.float64) * 10
+    for w in writers:
+        w.append_batch(names[:4], q[:4], t[:4])
+        w.append_test(names[4], q[4], t[4])
+        w.append_real_test('real_b.jpg', q[5], [1, 2.5, 1e-9])
+        w.append_batch(['real_a.jpg'], q[6:], t[6:], real=True)
+    jp = writers[0].export(str(tmp_path / 'jax'), suffix='x')
+    tp = writers[1].export(str(tmp_path / 'torch'), suffix='x')
+    assert open(tp, 'rb').read() == open(jp, 'rb').read()
+    assert os.path.basename(tp) == 'submission_x.csv'
+
+
+def _small_split(root):
+    """Five 40x56 random frames: labelled and unlabelled records mixed,
+    one frame smaller than the loader's frame size (zero-padded)."""
+    rng = np.random.default_rng(2)
+    frames = [rng.integers(0, 256, (40, 56), dtype=np.uint8)
+              for _ in range(5)]
+    frames[3] = frames[3][:36, :50]
+    names = [f'f{i}.png' for i in range(5)]
+    recs = []
+    for i, n in enumerate(names):
+        r = {'rgb_pth': n, 'bbox': rng.uniform(0, 40, 4).astype(np.float32),
+             'sift3d': rng.normal(size=(30, 3)).astype(np.float32),
+             'K': np.eye(3, dtype=np.float32)}
+        if i != 2:
+            r['sift'] = rng.uniform(0, 40, (30, 2)).astype(np.float32)
+            r['qua'] = rng.normal(size=4).astype(np.float32)
+            r['RT'] = rng.normal(size=(3, 4)).astype(np.float32)
+        recs.append(r)
+    return write_split(root, frames, recs, names)
+
+
+def _assert_batches_equal(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        assert g['name'] == w['name']
+        for k in set(g) - {'name'}:
+            assert g[k].dtype == w[k].dtype
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+
+
+@pytest.mark.parametrize('shuffle', [False, True])
+def test_records_and_batches_match_jax(tmp_path, shuffle):
+    pkl = _small_split(str(tmp_path))
+    jrec = jspeed.records_from_pickle(pkl, str(tmp_path))
+    trec = tspeed.records_from_pickle(pkl, str(tmp_path))
+    assert [r.name for r in trec] == [r.name for r in jrec]
+    for a, b in zip(trec, jrec):
+        assert a.image_path == b.image_path
+        for f in ('bbox', 'keypoints_2d', 'keypoints_3d', 'K', 'quat',
+                  'trans'):
+            x, y = getattr(a, f), getattr(b, f)
+            assert (x is None) == (y is None), f
+            if x is not None:
+                np.testing.assert_array_equal(x, y)
+    kw = dict(batch_size=2, shuffle=shuffle, seed=5, drop_last=False,
+              frame_hw=(40, 56))
+    tl = tspeed.BatchLoader(trec, **kw)
+    got = list(tl)
+    want = list(jspeed.BatchLoader(jrec, **kw))
+    assert len(tl) == 3 and got[-1]['frame'].shape == (1, 40, 56)
+    _assert_batches_equal(got, want)
+    assert sum('quat' in b for b in got) == 2     # one batch is mixed
+    mixed = tspeed.records_from_pickle_mixed(pkl, 'root')
+    assert mixed[0].image_path == jspeed.mixed_image_path('root', 'f0.png')
+    assert tspeed.mixed_image_path('r', 'img000001.jpg') == \
+        jspeed.mixed_image_path('r', 'img000001.jpg')
+
+
+def test_pickle_and_json_splits(tmp_path):
+    recs = [{'rgb_pth': 'a.jpg', 'bbox': np.arange(4.0)}]
+    tspeed.save_pickle_records(str(tmp_path / 'd' / 'x.pkl'), recs)
+    got = jspeed.load_pickle_records(str(tmp_path / 'd' / 'x.pkl'))
+    np.testing.assert_array_equal(got[0]['bbox'], recs[0]['bbox'])
+    # a protocol-2 pickle as Python 2 wrote it loads with str keys
+    with open(tmp_path / 'p2.pkl', 'wb') as f:
+        pickle.dump(recs, f, protocol=2)
+    assert tspeed.load_pickle_records(str(tmp_path / 'p2.pkl'))[0][
+        'rgb_pth'] == 'a.jpg'
+    train = [{'filename': 'img1.jpg', 'q_vbs2tango': [1, 0, 0, 0],
+              'r_Vo2To_vbs_true': [0, 0, 9]}]
+    for name, data in (('train', train), ('test', [{'filename': 't.jpg'}]),
+                       ('real_test', [{'filename': 'r.jpg'}])):
+        (tmp_path / f'{name}.json').write_text(json.dumps(data))
+    got = tspeed.process_json_dataset(str(tmp_path))
+    want = jspeed.process_json_dataset(str(tmp_path))
+    assert (got.partitions, got.labels) == (want.partitions, want.labels)
+
+
+def test_eval_cache_crops_match_jax(tmp_path):
+    pkl = _small_split(str(tmp_path))
+    recs = [r for r in tspeed.records_from_pickle(pkl, str(tmp_path))
+            if r.quat is not None]
+    batches = list(tspeed.BatchLoader(recs, 3, shuffle=False,
+                                      drop_last=False, frame_hw=(40, 56)))
+    kw = dict(crop_size=32, n_panels=2, frame_hw=(40, 56))
+    want = jcache.EvalCache(JaxHRNet(jax_cfg.hrnet_tiny()), batches,
+                            recs[0].keypoints_3d, **kw)
+    got = tcache.EvalCache(torch.nn.Linear(1, 1), batches,
+                           recs[0].keypoints_3d, **kw)
+    assert got.n_frames == want.n_frames == 4
+    assert set(got.timing) == {'decode_s', 'crop_stage_s'}
+    for g, w in zip(got.batches, want.batches):
+        assert set(g) == set(w)
+        np.testing.assert_allclose(g['crop'].numpy(), np.asarray(w['crop']),
+                                   atol=1e-3, rtol=0)
+        np.testing.assert_array_equal(g['origin'].numpy(),
+                                      np.asarray(w['origin']))
+        np.testing.assert_array_equal(g['rate'].numpy(), np.asarray(w['rate']))
+        for k in set(g) - {'crop', 'origin', 'rate'}:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+    assert got.batches[0]['frame'].shape == (2, 40, 56)
+
+
+def test_evaluate_routes_agree(split):
+    """evaluate() over the cache and over the frame batches themselves,
+    with the same generator seed: the same crops and draws, so the same
+    result."""
+    from esa_pose_estimation_tpu_torch.utils.artifact import (
+        load_hrnet_artifact,
+    )
+    pkl, root, _ = split
+    model = load_hrnet_artifact(ARTIFACT, device='cpu')
+    recs = tspeed.records_from_pickle(pkl, root)
+    pts = torch.as_tensor(recs[0].keypoints_3d)
+    batches = list(tspeed.BatchLoader(recs, 4, shuffle=False))
+    cache = tcache.EvalCache(model, batches, pts)
+    a = tevaluate.evaluate(model, cache, pts, torch.Generator().manual_seed(3))
+    b = tevaluate.evaluate(model, batches, pts,
+                           torch.Generator().manual_seed(3))
+    assert a == b and a['nonfinite'] == 0 and a['speed'] <= 0.02
+
+
+def test_average_meter_matches_jax():
+    t, j = tevaluator.AverageMeter(), jevaluator.AverageMeter()
+    for v, n in ((0.5, 3), (np.float32(0.25), 1), (2.0, 0)):
+        t.update(v, n)
+        j.update(v, n)
+        assert vars(t) == vars(j)
+    t.reset()
+    assert t.count == 0 and t.avg == 0.0
+
+
+@pytest.mark.parametrize('cli', [tevaluate, tsubmit])
+@pytest.mark.parametrize('argv,msg', [
+    ([], 'needs --artifact'),
+    (['--workdir', 'runs/x', '--checkpoint', 'last'], 'ROADMAP item 11'),
+    (['--artifact', ARTIFACT, '--checkpoint', 'best_rotate'], 'training'),
+    (['--artifact', ARTIFACT, '--tiny'], "flags select 'hrnet_tiny'"),
+])
+def test_commands_refuse_what_they_cannot_run(cli, argv, msg):
+    with pytest.raises(SystemExit, match=msg):
+        cli.main(argv + ['--test-pkl', 'none.pkl', '--device', 'cpu'])

@@ -54,14 +54,39 @@ def test_spacecraft_points_equal_jax():
                                   np.asarray(jsyn.spacecraft_points()))
 
 
-def test_cpu_entry_points_never_touch_cuda(monkeypatch):
-    """infer_poses with every serving lever on, and the eval CLI, on CPU
+def _write_split(root: Path, frames, boxes) -> str:
+    """The frames as PNGs and a pickle of unlabelled records."""
+    import pickle
+
+    from PIL import Image
+    recs = []
+    for i, (f, b) in enumerate(zip(frames, boxes)):
+        name = f'img{i:06d}.png'
+        Image.fromarray(f.numpy().astype(np.uint8)).save(root / name)
+        recs.append({'rgb_pth': name, 'bbox': b.numpy(),
+                     'sift3d': np.asarray(jsyn.spacecraft_points()),
+                     'K': np.eye(3),
+                     'qua': np.array([1.0, 0, 0, 0]),
+                     'RT': np.concatenate([np.eye(3), [[0.1], [0], [10]]], 1)})
+    with open(root / 'split.pkl', 'wb') as fh:
+        pickle.dump(recs, fh)
+    return str(root / 'split.pkl')
+
+
+def test_cpu_entry_points_never_touch_cuda(monkeypatch, tmp_path):
+    """infer_poses with every serving lever on, detect_and_infer with a
+    seeded detector, and the eval, evaluate and submit commands, on CPU
     tensors: no CUDA call and no kernel build."""
     from esa_pose_estimation_tpu_torch import _build
     from esa_pose_estimation_tpu_torch import pipeline
-    from esa_pose_estimation_tpu_torch.cli import eval_synthetic
+    from esa_pose_estimation_tpu_torch.cli import (
+        eval_synthetic,
+        evaluate,
+        submit,
+    )
     from esa_pose_estimation_tpu_torch.data import synthetic as tsyn
     from esa_pose_estimation_tpu_torch.models import hrnet, layers
+    from esa_pose_estimation_tpu_torch.models.detector import TinyDetector
     from esa_pose_estimation_tpu_torch.ops import peak
     from esa_pose_estimation_tpu_torch.utils.artifact import (
         load_hrnet_artifact,
@@ -93,3 +118,22 @@ def test_cpu_entry_points_never_touch_cuda(monkeypatch):
                                '--device', 'cpu', '--frames', '2',
                                '--batch-size', '2', '--int8'])
     assert rec['frames'] + rec['nonfinite_frames'] == 2
+    # the int8 lever costs seconds per forward on the CPU, and the paths
+    # below add no int8 code
+    monkeypatch.setattr(layers, 'INT8_SERVING', False)
+    det = TinyDetector(width=8).init_weights(
+        torch.Generator().manual_seed(0)).eval()
+    s2 = tsyn.make_sample(gen, tsyn.spacecraft_points(), 2, height=300,
+                          width=480)
+    out = pipeline.detect_and_infer(det, model, s2.image,
+                                    tsyn.spacecraft_points(), gen, K=K,
+                                    n_hypotheses=8, lm_iters=2)
+    assert out.quat.shape == (2, 4) and out.quat.device.type == 'cpu'
+    pkl = _write_split(tmp_path, s2.image, s2.bbox)
+    common = ['--artifact', 'artifacts/esa_syn_r5.npz', '--device', 'cpu',
+              '--test-pkl', pkl, '--image-root', str(tmp_path),
+              '--workdir', str(tmp_path), '--batch-size', '2']
+    res = evaluate.main(common)
+    assert 0 <= res['nonfinite'] <= 2 and 'speed' in res
+    path = submit.main(common + ['--suffix', 'cpu'])
+    assert len(open(path).read().strip().split('\n')) == 2
