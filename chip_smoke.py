@@ -20,7 +20,8 @@ ground truth, and times the path.  Phases:
                  residual, and three ragged shapes; two launches must be
                  equal; timed per site and per forward at 64 and 256
   5. serving     64 synthetic frames -> infer_poses, SPEED score (median
-                 must be <= 0.01), launch counts; again with FUSED_CBAM
+                 must be <= 0.01), launch counts, no operation that makes
+                 the host wait for the card; again with FUSED_CBAM
                  (heatmaps within 0.05, median <= 0.01)
   6. throughput  images/s of infer_poses at batch 1 and 256, K2 off and on
   7. profile     one batch-256 call under torch.profiler, FUSED_CBAM off
@@ -42,13 +43,28 @@ ground truth, and times the path.  Phases:
                  planted detector (the targets of the true boxes): boxes
                  within 64 px, no full-frame fallback, SPEED median <=
                  0.01, K1 launches; (b) a seeded TinyDetector on the card
-                 against the CPU (maps rtol/atol 1e-3, boxes 1 px), then
+                 against the CPU (maps rtol/atol 1e-3, boxes 1 px), one
+                 call with no host wait, then
                  detect_and_infer timed at batch 1 and 256 beside the
                  detect stage, one batch-256 call profiled, and the
                  frames' host-to-device copy; (c) the 64 frames as a PNG +
                  pickle split: cli.submit (64 finite rows of 8 fields in
                  filename order) and cli.evaluate (speed <= 0.02, no
                  non-finite frame) on the r5 artifact
+ 12. train       (e) the r5 weights as f32 masters and as the loader's
+                 stored bf16 serve phase 5's frames with equal heatmaps;
+                 (a) one f32 train step of hrnet_tiny, card against CPU
+                 (loss rtol 1e-5, grad_norm 1e-4, running statistics 1e-5,
+                 parameters within lr); (b) hrnet_esa from r5, bf16 over
+                 f32 masters: steps/s, images/s, peak memory and share of
+                 the bf16 peak at batch 32 and 256, one batch-256 step
+                 profiled (kernels, idle share, forward / backward /
+                 optimizer); (c) 60 steps from r5 at batch 32 with
+                 --augment-photo at lr 1e-5, every loss finite, then the
+                 in-train evaluate on phase 10's 128 held-out frames
+                 (median <= 0.01) with K1's launches; (d) cli.train --tiny
+                 on the card, cli.eval_synthetic --checkpoint best_rotate
+                 and the artifact export on its run
 
 Kernel and plain times (``ms``, ``plain_ms``) are means of eager calls
 between CUDA events, host cost included, as in earlier PRs; K1 and K2 are
@@ -58,7 +74,8 @@ also timed with the same calls replayed from a CUDA graph
 exit code is non-zero and the final line is not printed.  The line before
 the last is a JSON record of each kernel (launches on its main path: the
 serving call for K1 and K2, the branch-chain experiment for K3; for K1
-also its launches in one detect_and_infer call; error
+also its launches in one detect_and_infer call and in phase 12c's
+in-train evaluate; error
 against its plain version, times, bound); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -434,6 +451,36 @@ def serve(model, s, pts):
         torch.Generator(device=DEVICE).manual_seed(SEED + 3), **SERVE_KW)
 
 
+def sync_sites(call) -> dict[str, int]:
+    """The synchronizing CUDA operations of one ``call()``, each of which
+    makes the host wait for the card, counted by the source line that ran
+    them (torch's sync debug mode)."""
+    import collections
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return dict(collections.Counter(
+        f'{Path(w.filename).name}:{w.lineno}' for w in caught
+        if 'synchronizing CUDA operation' in str(w.message)))
+
+
+def check_no_host_wait(label: str, call) -> None:
+    """A serving call must not make the host wait for the card: a copy of
+    a host constant inside it did (ROADMAP fault 1)."""
+    sites = sync_sites(call)
+    log(f'{label}: {sum(sites.values())} synchronizing operations in one '
+        f'call {sites}')
+    if sites:
+        raise AssertionError(f'{label}: the host waits for the card at '
+                             f'{sites}')
+
+
 def phase_serving(model, pts):
     """Returns the K1 and K2 launches, the 64 frames and the plain run's
     output (phase 9 serves the same frames)."""
@@ -476,6 +523,7 @@ def phase_serving(model, pts):
         f'{mean:.5f} worst {worst:.5f} (median limit 0.01)')
     if not med <= 0.01:
         raise AssertionError(f'serving: SPEED median {med} > 0.01')
+    check_no_host_wait('serving', lambda: serve(model, s, pts))
 
     out2, k1b, k2b = run(True)
     if k1b != 1 or k2b != 29:
@@ -949,7 +997,6 @@ def phase_seeded(model, pts) -> None:
     import copy
 
     from esa_pose_estimation_tpu_torch import pipeline
-    from esa_pose_estimation_tpu_torch.core import camera
     from esa_pose_estimation_tpu_torch.data import synthetic
     from esa_pose_estimation_tpu_torch.models.detector import (
         TinyDetector,
@@ -1004,6 +1051,8 @@ def phase_seeded(model, pts) -> None:
                              f'{valid_same} and {top_same}')
 
     rgen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    check_no_host_wait('two-stage', lambda: pipeline.detect_and_infer(
+        det, model, frames[:16], pts, rgen))
     for batch, iters in TWO_STAGE_RUNS:
         f = frames[:batch].contiguous()
         pipeline.detect_and_infer(det, model, f, pts, rgen)
@@ -1021,18 +1070,6 @@ def phase_seeded(model, pts) -> None:
         log(f'two-stage throughput: batch {batch}: {batch * iters / dt:.1f} '
             f'img/s ({dt / iters * 1e3:.1f} ms per detect_and_infer call; '
             f'detect_frames alone {d_ms:.2f} ms per call)')
-    # where no K is given, the serving tail copies SPEED_K to the card,
-    # a copy that makes the host wait for the queued kernels (the
-    # detector's among them); the same call at the last batch with K
-    # already on the card shows what that wait costs
-    K = torch.as_tensor(camera.SPEED_K, dtype=torch.float32, device=DEVICE)
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        pipeline.detect_and_infer(det, model, f, pts, rgen, K=K)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / iters
-    log(f'two-stage throughput: batch {f.shape[0]} with K on the card: '
-        f'{f.shape[0] / dt:.1f} img/s ({dt * 1e3:.1f} ms per call)')
     profile_call(lambda: pipeline.detect_and_infer(det, model, frames, pts,
                                                    rgen),
                  'profile two-stage', top=6)
@@ -1112,6 +1149,416 @@ def phase_commands(s, pts) -> None:
         raise AssertionError(f'evaluate: {res}')
 
 
+# phase 12 (a): one f32 train step of hrnet_tiny, card against CPU
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_STAT_TOL = 1e-5, 1e-4, 1e-5
+# (batch, warm-up steps, timed steps) of the full-width throughput
+TRAIN_RUNS = ((32, 2, 8), (256, 2, 4))
+FINETUNE_STEPS, FINETUNE_BATCH = 60, 32
+# the held-out frames of cli.eval_synthetic (its --seed, its batch)
+EVAL_SEED, EVAL_BATCH, EVAL_FRAMES = 991, 32, 128
+TRAIN_PHASES = ('forward', 'backward', 'optimizer')
+
+
+def r5_masters():
+    """The r5 weights as a training model holds them: f32 parameters of
+    the bf16 hrnet_esa, on the card, in train layout (channels_last)."""
+    from esa_pose_estimation_tpu_torch.models.hrnet import HRNet
+    from esa_pose_estimation_tpu_torch.utils import config
+    from esa_pose_estimation_tpu_torch.utils.artifact import (
+        from_jax_variables,
+        read_artifact,
+    )
+    variables, _ = read_artifact(ARTIFACT)
+    model = HRNet(config.hrnet_esa(), dtype=torch.bfloat16)
+    model.load_state_dict(from_jax_variables(variables), strict=True)
+    return model.to(DEVICE, memory_format=torch.channels_last)
+
+
+def train_serving_form(s, pts) -> None:
+    """12e: the r5 weights as f32 masters and in the loader's stored-bf16
+    serving form serve phase 5's frames with the same heatmaps."""
+    from esa_pose_estimation_tpu_torch.utils.artifact import (
+        load_hrnet_artifact,
+    )
+    masters = r5_masters().eval()
+    serving = load_hrnet_artifact(ARTIFACT, dtype=torch.bfloat16,
+                                  device=DEVICE)
+    if masters.stem_conv1.weight.dtype != torch.float32:
+        raise AssertionError('train: the masters are not f32')
+    a, b = serve(masters, s, pts), serve(serving, s, pts)
+    diff = float((a.heatmaps.float() - b.heatmaps.float()).abs().max())
+    if torch.equal(a.heatmaps, b.heatmaps):
+        log(f'train serving form: r5 as f32 masters and as stored bf16 give '
+            f'equal heatmaps on {s.image.shape[0]} frames (torch.equal)')
+        return
+    log(f'train serving form: heatmaps differ by {diff:.4g} (limit 1e-2): '
+        'the two models feed cuDNN the same bf16 operands, so a difference '
+        'is a change of algorithm between the calls')
+    if not diff <= 1e-2:
+        raise AssertionError(f'train serving form: heatmaps moved {diff}')
+
+
+def train_card_vs_cpu() -> None:
+    """12a: one f32 train step of hrnet_tiny from the same weights and
+    batch on the card and on the CPU (TF32 off)."""
+    import copy
+
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.models.hrnet import HRNet
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+    from esa_pose_estimation_tpu_torch.utils import config
+    cfg = config.TrainConfig(batch_size=8, crop_size=64)
+    lr = cfg.lr_values[0]
+    cpu = HRNet(config.hrnet_tiny()).init_weights(
+        torch.Generator().manual_seed(SEED + 20))
+    card = copy.deepcopy(cpu).to(DEVICE, memory_format=torch.channels_last)
+    gen = torch.Generator().manual_seed(SEED + 21)
+    batch = synthetic.make_batch(gen, 8, synthetic.spacecraft_points(n=6),
+                                 crop_size=64)
+    # standard-normal images: on the synthetic crops' flat ground a
+    # channel's mean is tens of times its spread, and the fast variance
+    # mean(x^2) - mean(x)^2 would multiply the two sums' rounding by
+    # mean^2/var
+    batch = {'image': torch.randn(batch['image'].shape, generator=gen),
+             'heatmaps': batch['heatmaps'], 'weights': batch['weights']}
+    m_cpu = tstate.train_step(tstate.create_train_state(cpu, cfg), batch)
+    m_card = tstate.train_step(tstate.create_train_state(card, cfg),
+                               {k: v.to(DEVICE) for k, v in batch.items()})
+    loss_rel = abs(float(m_card['loss']) / float(m_cpu['loss']) - 1.0)
+    gn_rel = abs(float(m_card['grad_norm']) / float(m_cpu['grad_norm'])
+                 - 1.0)
+    sd_cpu, sd_card = cpu.state_dict(), card.state_dict()
+    stat_err = param_err = 0.0
+    stats_ok = True
+    for k, v in sd_cpu.items():
+        w = sd_card[k].cpu()
+        err = float((w - v).abs().max())
+        if k.endswith(('running_mean', 'running_var')):
+            stat_err = max(stat_err, err)
+            stats_ok &= torch.allclose(w, v, rtol=TRAIN_STAT_TOL,
+                                       atol=TRAIN_STAT_TOL)
+        else:
+            param_err = max(param_err, err)
+    log(f'train card vs CPU (hrnet_tiny f32, batch 8 at 64x64): loss '
+        f'{float(m_card["loss"]):.7g} rel diff {loss_rel:.3g} (limit '
+        f'{TRAIN_LOSS_RTOL}); grad_norm rel diff {gn_rel:.3g} (limit '
+        f'{TRAIN_GNORM_RTOL}); running statistics max diff {stat_err:.3g} '
+        f'(rtol/atol {TRAIN_STAT_TOL}); parameters max diff {param_err:.3g} '
+        f'(limit lr {lr})')
+    if not (loss_rel <= TRAIN_LOSS_RTOL and gn_rel <= TRAIN_GNORM_RTOL
+            and stats_ok and param_err <= lr):
+        raise AssertionError('train: card and CPU steps disagree')
+
+
+def conv_flops_per_image(model) -> float:
+    """The forward's convolution FLOPs per image, from the shapes of one
+    batch-1 forward (2 per multiply-add)."""
+    from esa_pose_estimation_tpu_torch.models.layers import Conv
+    total = [0]
+
+    def hook(mod, inp, out):
+        total[0] += 2 * out.numel() * mod.weight[0].numel()
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, Conv)]
+    was_training = model.training
+    model.eval()
+    with torch.no_grad():
+        model(torch.zeros((1, 128, 128, 1), device=DEVICE))
+    model.train(was_training)
+    for h in handles:
+        h.remove()
+    return float(total[0])
+
+
+def phased_step(st, batch) -> None:
+    """``train.state.train_step``'s operations, with a synchronize closing
+    each phase inside its range: the profile's CPU ranges then bound each
+    phase's kernels."""
+    from torch.profiler import record_function
+
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+    from esa_pose_estimation_tpu_torch.train.loss import (
+        weighted_heatmap_loss,
+    )
+    model, opt = st.model, st.optimizer
+    model.train()
+    with record_function('forward'):
+        loss = weighted_heatmap_loss(model(batch['image']),
+                                     batch['heatmaps'], batch['weights'])
+        torch.cuda.synchronize()
+    with record_function('backward'):
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        tstate.global_norm([p.grad for p in model.parameters()
+                            if p.grad is not None])
+        torch.cuda.synchronize()
+    with record_function('optimizer'):
+        for group in opt.param_groups:
+            group['lr'] = st.schedule(st.step)
+        opt.step()
+        st.step += 1
+        torch.cuda.synchronize()
+
+
+def profile_train(st, batch) -> None:
+    """One batch-256 train_step under torch.profiler: kernels, kernel time,
+    the device's idle share; then one phased step for the time and
+    launches of forward, backward and optimizer."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        tstate.train_step(st, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        log('profile train: the profiler recorded no device time (not '
+            'measured)')
+        return
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    log(f'profile train step batch 256: wall {wall_ms:.1f} ms under the '
+        f'profiler, {len(kernels)} kernels, {busy:.1f} ms of kernel time, '
+        f'device idle share {1 - busy / wall_ms:.3f}')
+    by_name: dict[str, list[float]] = {}
+    for e in kernels:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    for name, times in sorted(by_name.items(),
+                              key=lambda kv: -sum(kv[1]))[:6]:
+        log(f'profile train kernel {sum(times) / 1e3:8.2f} ms '
+            f'{len(times):5d}x {name[:90]}')
+    with profile(activities=acts) as prof:
+        phased_step(st, batch)
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name not in TRAIN_PHASES]
+    for name in TRAIN_PHASES:
+        rngs = [e.time_range for e in events
+                if e.name == name and e.device_type == DeviceType.CPU]
+        if not rngs:
+            log(f'profile train phase {name}: no range recorded (not '
+                'measured)')
+            continue
+        lo, hi = min(r.start for r in rngs), max(r.end for r in rngs)
+        inside = [e for e in kernels if lo <= e.time_range.start < hi]
+        ms = sum(e.time_range.elapsed_us() for e in inside) / 1e3
+        log(f'profile train phase {name}: host {(hi - lo) / 1e3:.2f} ms '
+            f'(synchronized), kernels {ms:.2f} ms in {len(inside)} '
+            'launches')
+
+
+def train_throughput(pts) -> None:
+    """12b: full width from r5 (bf16 compute, f32 masters): steps/s,
+    images/s, peak memory and share of the bf16 peak at batch 32 and 256,
+    then the profile of a batch-256 step."""
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+    from esa_pose_estimation_tpu_torch.utils import config
+    model = r5_masters()
+    fwd = conv_flops_per_image(model)
+    log(f'train: hrnet_esa forward {fwd / 1e9:.2f} GFLOP of convolutions '
+        f'per image, a step about 3x: {3 * fwd / 1e9:.1f} GFLOP per image')
+    st = tstate.create_train_state(model, config.TrainConfig())
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 22)
+    for batch, warm, iters in TRAIN_RUNS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batches = [synthetic.make_batch(gen, batch, pts) for _ in range(2)]
+        torch.cuda.synchronize()
+        make_ms = (time.perf_counter() - t0) / 2 * 1e3
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(warm):
+            tstate.train_step(st, batches[i % 2])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(iters):
+            m = tstate.train_step(st, batches[i % 2])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / iters
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not math.isfinite(float(m['loss'])):
+            raise AssertionError(f'train: loss {float(m["loss"])} at batch '
+                                 f'{batch}')
+        share = 3 * fwd * batch / dt / BF16_OPS_PER_S
+        log(f'train throughput: batch {batch}: {1 / dt:.2f} steps/s, '
+            f'{batch / dt:.1f} img/s ({dt * 1e3:.1f} ms per step), peak '
+            f'memory {peak:.2f} GiB, {100 * share:.2f}% of the bf16 peak; '
+            f'make_batch {make_ms:.1f} ms (not in the step)')
+        if batch == TRAIN_RUNS[0][0]:
+            sites = sync_sites(lambda: tstate.train_step(st, batches[0]))
+            log(f'train step batch {batch}: {sum(sites.values())} '
+                f'synchronizing operations {sites}')
+        if batch == TRAIN_RUNS[-1][0]:
+            profile_train(st, batches[0])
+        del batches
+    del st, model
+    torch.cuda.empty_cache()
+
+
+def held_out_batches(pts) -> list[dict]:
+    """The 128 frames of phase 10 (cli.eval_synthetic's generators) as
+    frame-carrying batches."""
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    out = []
+    for i in range(-(-EVAL_FRAMES // EVAL_BATCH)):
+        g = torch.Generator(device=DEVICE).manual_seed(
+            EVAL_SEED * 100_003 + i)
+        s = synthetic.make_sample(g, pts, EVAL_BATCH)
+        out.append({'frame': s.image, 'bbox': s.bbox, 'quat': s.quat,
+                    'trans': s.trans, 'keypoints_2d': s.keypoints_2d})
+    return out
+
+
+def evaluate_with_medians(model, cache, pts) -> tuple[dict, float, int]:
+    """cli.evaluate.evaluate on the cache; returns its result, the median
+    of its per-frame SPEED scores (finite frames) and K1's launches in
+    the call."""
+    from esa_pose_estimation_tpu_torch.cli import evaluate as evaluate_mod
+    from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
+        peak_decode,
+    )
+    real = evaluate_mod.speed_score_from_matrices
+    frames = []
+
+    def recording(*args):
+        sc = real(*args)
+        frames.append(sc.score_t + sc.score_r)
+        return sc
+    evaluate_mod.speed_score_from_matrices = recording
+    try:
+        model.eval()
+        peak_decode.launches = 0
+        res = evaluate_mod.evaluate(
+            model, cache, pts, torch.Generator(device=DEVICE).manual_seed(
+                SEED + 24))
+        torch.cuda.synchronize()
+        launches = peak_decode.launches
+    finally:
+        evaluate_mod.speed_score_from_matrices = real
+    sc = torch.cat(frames).cpu()
+    sc = sc[torch.isfinite(sc)]
+    med = float(sc.median()) if sc.numel() else math.inf
+    return res, med, launches
+
+
+def train_finetune(pts) -> int:
+    """12c: a short fine-tune from r5 with --augment-photo at the
+    schedule's second rate, then the in-train evaluate on the 128 held-out
+    frames of phase 10, before and after.  Returns K1's launches in the
+    evaluation after."""
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.eval.eval_cache import EvalCache
+    from esa_pose_estimation_tpu_torch.experimental.branch_chain import (
+        branch_chain,
+    )
+    from esa_pose_estimation_tpu_torch.experimental.cbam_fuse import (
+        fused_cbam,
+    )
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+    from esa_pose_estimation_tpu_torch.utils import config
+    model = r5_masters()
+    t0 = time.perf_counter()
+    cache = EvalCache(model, held_out_batches(pts), pts)
+    before, med0, _ = evaluate_with_medians(model, cache, pts)
+    # a boundary at epoch 0 applies the schedule's second value from the
+    # first step: lr_values[1] = 1e-5
+    cfg = config.TrainConfig(lr_boundaries=(0, 100, 170))
+    st = tstate.create_train_state(model, cfg, FINETUNE_STEPS)
+    lr = st.schedule(0)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
+    fused_cbam.launches = branch_chain.launches = 0
+    t1 = time.perf_counter()
+    losses = torch.stack([
+        tstate.train_step(st, synthetic.make_batch(
+            gen, FINETUNE_BATCH, pts, augment_photo=True))['loss']
+        for _ in range(FINETUNE_STEPS)]).cpu()
+    t_train = time.perf_counter() - t1
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f'train fine-tune: non-finite loss {losses}')
+    if fused_cbam.launches or branch_chain.launches:
+        raise AssertionError('train fine-tune: K2 or K3 launched in train '
+                             'mode')
+    after, med, launches = evaluate_with_medians(model, cache, pts)
+    n_batches = len(cache.batches)
+    log(f'train fine-tune: {FINETUNE_STEPS} steps at batch '
+        f'{FINETUNE_BATCH}, lr {lr:g}, --augment-photo, {t_train:.1f} s '
+        f'with batch building; loss first {float(losses[0]):.5f} last '
+        f'{float(losses[-1]):.5f}, all finite')
+    log(f'train fine-tune eval on {cache.n_frames} held-out frames: before '
+        f'median {med0:.5f} speed {before["speed"]:.5f}; after median '
+        f'{med:.5f} (limit 0.01) speed {after["speed"]:.5f} score_t '
+        f'{after["score_t"]:.5f} score_r {after["score_r"]:.5f} pix_err '
+        f'{after["pix_err"]:.3f} nonfinite {after["nonfinite"]}; K1 '
+        f'launches {launches} in {n_batches} batches; '
+        f'{time.perf_counter() - t0:.1f} s')
+    if not med <= 0.01:
+        raise AssertionError(f'train fine-tune: held-out median {med}')
+    if launches < n_batches:
+        raise AssertionError(f'train fine-tune: K1 launched {launches} times '
+                             f'in {n_batches} eval batches')
+    del st, model, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_commands() -> None:
+    """12d: cli.train --tiny on the card, then cli.eval_synthetic and the
+    artifact export on its checkpoint."""
+    import tempfile
+
+    from esa_pose_estimation_tpu_torch.cli import eval_synthetic, train
+    from esa_pose_estimation_tpu_torch.utils import artifact
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        wd = f'{root}/run'
+        train.main(['--workdir', wd, '--tiny', '--epochs', '2',
+                    '--synthetic-size', '64', '--batch-size', '16',
+                    '--eval-every', '1'])
+        t_train = time.perf_counter() - t0
+        ckpts = set(Path(wd, 'net_esa').iterdir())
+        names = {p.name for p in ckpts}
+        with open(f'{wd}/events.jsonl') as f:
+            events = [json.loads(line)['event'] for line in f]
+        rows = Path(wd, 'log_esa.txt').read_text().strip().split('\n')
+        if not ({'last', 'best_tran', 'best_rotate'} <= names
+                and 'eval' in events and len(rows) == 3):
+            raise AssertionError(f'cli.train: checkpoints {sorted(names)}, '
+                                 f'events {events}, log rows {len(rows)}')
+        rec = eval_synthetic.main(['--workdir', wd, '--checkpoint',
+                                   'best_rotate', '--tiny', '--frames', '16',
+                                   '--batch-size', '16'])
+        if rec['frames'] + rec['nonfinite_frames'] != 16:
+            raise AssertionError(f'eval_synthetic on the checkpoint: {rec}')
+        npz = f'{root}/tiny.npz'
+        artifact.main(['--workdir', wd, '--out', npz, '--tiny'])
+        served = artifact.load_hrnet_artifact(npz, device=DEVICE)
+        with torch.no_grad():
+            hm = served(torch.zeros((1, 128, 128, 1), device=DEVICE))
+        if hm.shape != (1, 128, 128, 6) or not bool(torch.isfinite(hm).all()):
+            raise AssertionError(f'exported artifact: heatmaps {hm.shape}')
+    log(f'train commands: cli.train --tiny 2 epochs in {t_train:.1f} s wrote '
+        f'{sorted(names)}, log rows {rows[1:]}, events {events}; '
+        f'eval_synthetic --checkpoint best_rotate {json.dumps(rec)}; '
+        f'export loaded by load_hrnet_artifact; '
+        f'{time.perf_counter() - t0:.1f} s')
+
+
+def phase_train(s, pts) -> int:
+    """12: training.  Returns K1's launches in the fine-tune's in-train
+    evaluation."""
+    t0 = time.perf_counter()
+    train_serving_form(s, pts)
+    train_card_vs_cpu()
+    train_throughput(pts)
+    launches = train_finetune(pts)
+    train_commands()
+    log(f'train: phase {time.perf_counter() - t0:.1f} s')
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_device()
@@ -1135,13 +1582,17 @@ def main() -> None:
     phase_seeded(model, pts)
     phase_commands(planted, pts)
     log(f'two-stage and commands: phase {time.perf_counter() - t11:.1f} s')
+    k1['launches_train_eval'] = phase_train(frames, pts)
     log(f'total: {time.perf_counter() - t_start:.1f} s')
     # graph_ms / plain_graph_ms (K1 and K2): the same calls replayed from a
     # CUDA graph, beside ms / plain_ms by eager calls as in earlier PRs;
-    # launches_two_stage (K1): its launches in one detect_and_infer call
+    # launches_two_stage (K1): its launches in one detect_and_infer call;
+    # launches_train_eval (K1): its launches in the in-train evaluate of
+    # phase 12c (four batches of 32 held-out frames)
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
-            'graph_ms', 'plain_graph_ms', 'launches_two_stage')
+            'graph_ms', 'plain_graph_ms', 'launches_two_stage',
+            'launches_train_eval')
     print(json.dumps({'kernels': [{k: rec[k] for k in keys if k in rec}
                                   for rec in (k1, k2, k3)]}))
     print(json.dumps({'ok': True, 'device': {

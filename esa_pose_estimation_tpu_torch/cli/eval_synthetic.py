@@ -1,7 +1,9 @@
 """Held-out synthetic SPEED evaluation with per-frame score statistics.
 
     python -m esa_pose_estimation_tpu_torch.cli.eval_synthetic \\
-        --artifact artifacts/esa_syn_r5.npz [--int8] [--device cpu]
+        [--workdir runs/esa_syn --checkpoint best_rotate | \\
+         --artifact artifacts/esa_syn_r5.npz] [--perturb] [--int8] \\
+        [--device cpu]
 
 Port of the JAX package's ``cli/eval_synthetic.py``.  It scores ``--frames``
 synthetic frames through the full serving path (``pipeline.infer_poses``)
@@ -9,13 +11,18 @@ and prints one JSON line: median / p90 / mean SPEED score, the fraction of
 frames beating the reference leaderboard score (0.0193), the worst frame
 and its depth, and the mean pixel error of the selected keypoints.
 ``--int8`` serves the head conv in int8 (``models.layers.INT8_SERVING``):
-this flag is the lever's accuracy gate.
+this flag is the lever's accuracy gate.  ``--perturb`` scores the frames
+through ``data/augment.perturb_capture`` (exposure gain/offset, then
+gaussian noise or motion blur) applied to the full frames before the crop:
+the capture condition that ``cli/train --augment-photo`` trains through.
 
 The frames come from ``data/synthetic.make_sample`` with a generator seeded
 from ``--seed`` and the batch index, so the frame set is not the JAX one:
 scores compare with the JAX package's in distribution, not frame by frame.
-Only ``--artifact`` weights are read here; the checkpoint, detector and
-perturbation routes of the JAX command wait for later slices.
+The weights come from the port checkpoint ``<workdir>/net_esa/<checkpoint>``
+(``cli/train.py`` writes them), or from ``--artifact`` when one is given.
+The JAX command's ``--detector-workdir`` route waits for detector training
+(ROADMAP item 11b).
 """
 
 from __future__ import annotations
@@ -62,15 +69,20 @@ def summarize(scores: np.ndarray, depths: np.ndarray, pix_err_sum: float,
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--workdir', default='runs/esa_syn',
+                    help='the training run whose net_esa/ checkpoint is '
+                         'scored')
+    ap.add_argument('--checkpoint', default='best_rotate',
+                    help='checkpoint name under <workdir>/net_esa')
     ap.add_argument('--artifact', default=None,
-                    help='inference artifact (.npz) to evaluate, e.g. '
-                         'artifacts/esa_syn_r5.npz')
+                    help='inference artifact (.npz) to evaluate in place of '
+                         'the checkpoint, e.g. artifacts/esa_syn_r5.npz')
     ap.add_argument('--frames', type=int, default=128)
     ap.add_argument('--batch-size', type=int, default=32)
     ap.add_argument('--seed', type=int, default=991)
     ap.add_argument('--n-hypotheses', type=int, default=64)
     ap.add_argument('--tiny', action='store_true',
-                    help='tiny model topology (must match the artifact)')
+                    help='tiny model topology (must match the weights)')
     ap.add_argument('--crop-size', type=int, default=128)
     ap.add_argument('--flip-tta', action='store_true',
                     help='average heatmaps with a mirrored-input forward '
@@ -79,6 +91,12 @@ def _parser() -> argparse.ArgumentParser:
                     help='serve the head conv in int8 (models/layers.py '
                          'INT8_SERVING; experimental): this flag is the '
                          'accuracy gate, compare scores with and without')
+    ap.add_argument('--perturb', action='store_true',
+                    help='score the frames through capture-condition '
+                         'perturbations (per-frame exposure gain/offset, '
+                         'then gaussian noise or motion blur, '
+                         'data/augment.perturb_capture) applied to the full '
+                         'frame before the crop')
     ap.add_argument('--mirror-evidence', choices=('heatmap', 'cost'),
                     default='heatmap',
                     help='mirror-pose disambiguation signal: reprojected-'
@@ -90,25 +108,30 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = _parser().parse_args(argv)
-    if not args.artifact:
-        raise SystemExit(
-            'eval_synthetic needs --artifact: the --workdir/--checkpoint '
-            '(training) and --detector-workdir (detector) routes of the JAX '
-            'command are not ported yet')
 
     from esa_pose_estimation_tpu_torch import pipeline
-    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.data import augment, synthetic
     from esa_pose_estimation_tpu_torch.eval.speed_score import (
         speed_score_from_matrices,
     )
     from esa_pose_estimation_tpu_torch.models import layers
-    from esa_pose_estimation_tpu_torch.utils.artifact import load_cli_artifact
+    from esa_pose_estimation_tpu_torch.utils.artifact import (
+        load_cli_artifact,
+        load_cli_checkpoint,
+    )
+    from esa_pose_estimation_tpu_torch.utils.seeding import generator
 
     dev = torch.device(args.device)
-    model, meta = load_cli_artifact(args.artifact, args.tiny,
-                                    args.crop_size, dev)
-    print(f'# loaded artifact {args.artifact} ({meta})')
-    points_3d = synthetic.spacecraft_points(device=dev)
+    if args.artifact:
+        model, meta = load_cli_artifact(args.artifact, args.tiny,
+                                        args.crop_size, dev)
+        print(f'# loaded artifact {args.artifact} ({meta})')
+    else:
+        model, epoch = load_cli_checkpoint(args.workdir, args.checkpoint,
+                                           args.tiny, dev)
+        print(f'# loaded {args.checkpoint} (epoch {epoch})')
+    points_3d = synthetic.spacecraft_points(
+        device=dev, n=model.cfg.num_keypoints)
 
     all_scores, depths = [], []
     pix_err_sum, pix_err_n = 0.0, 0
@@ -120,8 +143,13 @@ def main(argv=None) -> dict:
             gen = torch.Generator(device=dev).manual_seed(
                 args.seed * 100_003 + i)
             s = synthetic.make_sample(gen, points_3d, args.batch_size)
+            frames = s.image
+            if args.perturb:
+                frames = augment.perturb_capture(frames, augment.draw_perturb(
+                    generator(dev, args.seed, i, 4242), *frames.shape,
+                    device=dev))
             out = pipeline.infer_poses(
-                model, s.image, s.bbox, points_3d, gen,
+                model, frames, s.bbox, points_3d, gen,
                 crop_size=args.crop_size, conf_threshold=0.6,
                 min_keypoints=0, n_hypotheses=args.n_hypotheses,
                 flip_tta=args.flip_tta, mirror_evidence=args.mirror_evidence)

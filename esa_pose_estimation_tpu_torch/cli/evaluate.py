@@ -1,8 +1,9 @@
 """Labelled evaluation command: the reference ``demo.py`` as a command.
 
-    python -m esa_pose_estimation_tpu_torch.cli.evaluate \\
-        --artifact artifacts/esa_syn_r5.npz --test-pkl data/test.pkl \\
-        --image-root /data/speed/images/train/ [--device cpu]
+    python -m esa_pose_estimation_tpu_torch.cli.evaluate --workdir runs/esa \\
+        --test-pkl data/test.pkl --image-root /data/speed/images/train/ \\
+        [--checkpoint best_rotate | --artifact artifacts/esa_syn_r5.npz] \\
+        [--device cpu]
 
 Port of the JAX package's ``cli/evaluate.py``.  It runs the batched
 serving tail over a labelled split (crops cached once on the device by
@@ -12,9 +13,12 @@ count of frames whose pose came out non-finite, and appends a row to
 ``<workdir>/load/load_esa.txt`` as the reference does (demo.py:358-363).
 
 :func:`evaluate` is the loop that the JAX package keeps in
-``cli/train.py``; here it lives in this module, and the port of training
-imports it from here.  The weights come from ``--artifact`` (the JAX
-package's inference npz); reading image files needs Pillow.
+``cli/train.py``; here it lives in this module, and the port's
+``cli/train.py`` imports it from here.  The weights come from the port
+checkpoint ``<workdir>/net_esa/<--checkpoint>`` (``cli/train.py`` writes
+them), or from ``--artifact`` (an inference npz) when one is given; a
+missing checkpoint raises with the names that are there.  Reading image
+files needs Pillow.
 """
 
 from __future__ import annotations
@@ -33,11 +37,25 @@ from esa_pose_estimation_tpu_torch.eval.speed_score import (
     speed_score_from_matrices,
 )
 from esa_pose_estimation_tpu_torch.pipeline import infer_poses
-from esa_pose_estimation_tpu_torch.utils.artifact import load_cli_artifact
+from esa_pose_estimation_tpu_torch.utils.artifact import (
+    load_cli_artifact,
+    load_cli_checkpoint,
+)
 
-NOT_PORTED = ('the --workdir/--checkpoint route reads orbax training '
-              'checkpoints, which waits for the port of training (ROADMAP '
-              'item 11): pass --artifact <npz>')
+
+def load_weights(args, dev):
+    """The commands' weights: ``--artifact`` when given, else the port
+    checkpoint ``<workdir>/net_esa/<checkpoint>``.  Returns the serving
+    model and the name that the results record."""
+    if args.artifact:
+        model, meta = load_cli_artifact(args.artifact, args.tiny,
+                                        args.crop_size, dev)
+        print(f'loaded artifact {args.artifact} ({meta})')
+        return model, os.path.basename(args.artifact)
+    model, epoch = load_cli_checkpoint(args.workdir, args.checkpoint,
+                                       args.tiny, dev)
+    print(f'loaded checkpoint {args.checkpoint} (epoch {epoch})')
+    return model, args.checkpoint
 
 
 def evaluate(model, eval_batches, points_3d,
@@ -101,18 +119,19 @@ def evaluate(model, eval_batches, points_3d,
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--artifact', default=None,
-                    help='inference artifact (.npz) to evaluate, e.g. '
-                         'artifacts/esa_syn_r5.npz')
+                    help='inference artifact (.npz) to evaluate in place of '
+                         'the checkpoint, e.g. artifacts/esa_syn_r5.npz')
     ap.add_argument('--workdir', default='runs/esa',
-                    help='where load/load_esa.txt is appended')
-    ap.add_argument('--checkpoint', default=None,
-                    help='an orbax checkpoint name: not ported yet')
+                    help='the training run: its net_esa/ checkpoints are '
+                         'read and load/load_esa.txt is appended')
+    ap.add_argument('--checkpoint', default='best_rotate',
+                    help='checkpoint name under <workdir>/net_esa')
     ap.add_argument('--test-pkl', required=True)
     ap.add_argument('--image-root', default='')
     ap.add_argument('--batch-size', type=int, default=32)
     ap.add_argument('--crop-size', type=int, default=128)
     ap.add_argument('--tiny', action='store_true',
-                    help='tiny model topology (must match the artifact)')
+                    help='tiny model topology (must match the weights)')
     ap.add_argument('--device', default='cuda',
                     help="where to run: 'cuda' (default) or 'cpu'")
     return ap
@@ -120,12 +139,8 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = _parser().parse_args(argv)
-    if not args.artifact or args.checkpoint:
-        raise SystemExit(f'evaluate needs --artifact: {NOT_PORTED}')
     dev = torch.device(args.device)
-    model, meta = load_cli_artifact(args.artifact, args.tiny,
-                                    args.crop_size, dev)
-    print(f'loaded artifact {args.artifact} ({meta})')
+    model, name = load_weights(args, dev)
     records = speed_data.records_from_pickle(args.test_pkl, args.image_root)
     points_3d = torch.as_tensor(records[0].keypoints_3d, device=dev)
     loader = speed_data.BatchLoader(records,
@@ -139,7 +154,7 @@ def main(argv=None) -> dict:
     os.makedirs(os.path.join(args.workdir, 'load'), exist_ok=True)
     with open(os.path.join(args.workdir, 'load', 'load_esa.txt'), 'a') as f:
         f.write('\t'.join(str(v) for v in
-                          ['esa', os.path.basename(args.artifact),
+                          ['esa', name,
                            round(result['score_t'], 5),
                            round(result['score_r'], 5),
                            round(result['pix_err'], 5)]) + '\n')

@@ -1,17 +1,19 @@
 """Submission command: the reference ``val.py`` as a command.
 
-    python -m esa_pose_estimation_tpu_torch.cli.submit \\
-        --artifact artifacts/esa_syn_r5.npz --test-pkl data/test.pkl \\
-        [--real-test-pkl data/real_test.pkl] \\
-        --image-root /data/speed/images/ [--device cpu]
+    python -m esa_pose_estimation_tpu_torch.cli.submit --workdir runs/esa \\
+        --test-pkl data/test.pkl [--real-test-pkl data/real_test.pkl] \\
+        --image-root /data/speed/images/ \\
+        [--checkpoint best_rotate | --artifact artifacts/esa_syn_r5.npz] \\
+        [--device cpu]
 
 Port of the JAX package's ``cli/submit.py``.  It runs batched inference
 over the synthetic ``test`` and the ``real_test`` partitions (no labels)
 with the competition's keypoint selection (confidence > 0.8 with a floor of
 24 keypoints, val.py:172-175), solves the poses, and writes the
 leaderboard CSV with ``eval/submission.SubmissionWriter`` into
-``--workdir``.  The weights come from ``--artifact``; reading image files
-needs Pillow.
+``--workdir``.  The weights come from the port checkpoint
+``<workdir>/net_esa/<--checkpoint>``, or from ``--artifact`` when one is
+given (``cli/evaluate.load_weights``).  Reading image files needs Pillow.
 """
 
 from __future__ import annotations
@@ -20,12 +22,11 @@ import argparse
 
 import torch
 
-from esa_pose_estimation_tpu_torch.cli.evaluate import NOT_PORTED
+from esa_pose_estimation_tpu_torch.cli.evaluate import load_weights
 from esa_pose_estimation_tpu_torch.data import speed as speed_data
 from esa_pose_estimation_tpu_torch.data.speed import to_device
 from esa_pose_estimation_tpu_torch.eval.submission import SubmissionWriter
 from esa_pose_estimation_tpu_torch.pipeline import make_pipeline
-from esa_pose_estimation_tpu_torch.utils.artifact import load_cli_artifact
 
 
 def run_partition(model, records, points_3d, writer: SubmissionWriter,
@@ -52,12 +53,13 @@ def run_partition(model, records, points_3d, writer: SubmissionWriter,
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--artifact', default=None,
-                    help='inference artifact (.npz), e.g. '
-                         'artifacts/esa_syn_r5.npz')
+                    help='inference artifact (.npz) in place of the '
+                         'checkpoint, e.g. artifacts/esa_syn_r5.npz')
     ap.add_argument('--workdir', default='runs/esa',
-                    help='where the submission CSV is written')
-    ap.add_argument('--checkpoint', default=None,
-                    help='an orbax checkpoint name: not ported yet')
+                    help='the training run: its net_esa/ checkpoints are '
+                         'read and the submission CSV is written there')
+    ap.add_argument('--checkpoint', default='best_rotate',
+                    help='checkpoint name under <workdir>/net_esa')
     ap.add_argument('--test-pkl', required=True)
     ap.add_argument('--real-test-pkl', default=None)
     ap.add_argument('--image-root', default='')
@@ -83,7 +85,7 @@ def _parser() -> argparse.ArgumentParser:
                          'at 2x keypoint-network cost')
     ap.add_argument('--suffix', default=None)
     ap.add_argument('--tiny', action='store_true',
-                    help='tiny model topology (must match the artifact)')
+                    help='tiny model topology (must match the weights)')
     ap.add_argument('--device', default='cuda',
                     help="where to run: 'cuda' (default) or 'cpu'")
     return ap
@@ -91,12 +93,8 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> str:
     args = _parser().parse_args(argv)
-    if not args.artifact or args.checkpoint:
-        raise SystemExit(f'submit needs --artifact: {NOT_PORTED}')
     dev = torch.device(args.device)
-    model, meta = load_cli_artifact(args.artifact, args.tiny,
-                                    args.crop_size, dev)
-    print(f'loaded artifact {args.artifact} ({meta})')
+    model, _ = load_weights(args, dev)
     writer = SubmissionWriter()
     gen = torch.Generator(device=dev).manual_seed(7)
     kw = dict(batch_size=args.batch_size, crop_size=args.crop_size,

@@ -8,6 +8,8 @@ dimensions.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
@@ -26,6 +28,14 @@ SPEED_K = np.array(
      [0.0, 0.0, 1.0]],
     dtype=np.float64,
 )
+
+
+@lru_cache(maxsize=8)
+def speed_k(dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """:data:`SPEED_K` as a tensor on ``device``, copied once per (dtype,
+    device): a copy from host memory on every call would make the host
+    wait for the queued kernels.  Shared: do not write to it."""
+    return torch.as_tensor(SPEED_K, dtype=dtype, device=device)
 
 
 def normalize_quat(q: torch.Tensor) -> torch.Tensor:

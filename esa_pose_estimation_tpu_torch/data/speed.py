@@ -258,10 +258,12 @@ class BatchLoader:
             stop.set()
 
 
-def to_device(a: np.ndarray, device) -> torch.Tensor:
+def to_device(a: np.ndarray | torch.Tensor, device) -> torch.Tensor:
     """A host array as a tensor on ``device``.  To a CUDA device it is
     copied from page-locked memory, without blocking the host; on the CPU
-    it shares the array's memory."""
+    it shares the array's memory.  A tensor is moved (or kept) as it is."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device, non_blocking=True)
     t = torch.from_numpy(np.ascontiguousarray(a))
     if torch.device(device).type == 'cuda':
         return t.pin_memory().to(device, non_blocking=True)

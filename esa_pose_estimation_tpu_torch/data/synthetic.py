@@ -1,23 +1,33 @@
-"""Synthetic SPEED-like samples: the load generator of ``chip_smoke.py`` and
-the pipeline tests (torch port of the JAX package's ``data/synthetic.py``).
+"""Synthetic SPEED-like data: the load generator of ``chip_smoke.py``, the
+pipeline tests and the synthetic training route (torch port of the JAX
+package's ``data/synthetic.py``).
 
 * a fixed 30-point "spacecraft" model (:data:`SPACECRAFT_POINTS`);
 * random poses from the SPEED distribution (depth 5..30 m, uniform
   rotation), drawn from an explicit ``torch.Generator``;
 * full 1920x1200 frames rendered as per-keypoint-distinct Gaussian blobs
-  whose local maxima sit at the projected keypoints.
+  whose local maxima sit at the projected keypoints;
+* :func:`make_batch`, a training batch rendered in crop space: crops,
+  heatmap and weight targets (NHWC), optionally the full frames.
 
-Random draws cannot reproduce JAX's bits; tests that compare the two
-packages make their frames with the JAX package and pass them as numpy.
+Random draws cannot reproduce JAX's bits.  So each random function is
+split: :func:`random_pose` and :func:`draw_batch` draw, and
+:func:`sample_from_pose` and :func:`make_batch` (given ``draws``) are
+deterministic; tests inject the JAX package's draws there.
 """
 
 from __future__ import annotations
 
+import math
+from functools import lru_cache
 from typing import NamedTuple
 
 import torch
 
 from esa_pose_estimation_tpu_torch.core import camera
+from esa_pose_estimation_tpu_torch.data import augment
+from esa_pose_estimation_tpu_torch.ops import crop as crop_ops
+from esa_pose_estimation_tpu_torch.ops import heatmap as heatmap_ops
 
 # The JAX package's ``spacecraft_points()`` (uniform in +-0.45 m from PRNG
 # seed 1234, stretched by (1.3, 1.0, 0.6)), written out: torch cannot
@@ -56,9 +66,15 @@ SPACECRAFT_POINTS = (
 )
 
 
-def spacecraft_points(device=None) -> torch.Tensor:
-    """The (30, 3) f32 keypoint model, metres."""
-    return torch.tensor(SPACECRAFT_POINTS, dtype=torch.float32,
+def spacecraft_points(device=None, n: int = len(SPACECRAFT_POINTS)
+                      ) -> torch.Tensor:
+    """The (n, 3) f32 keypoint model, metres: the first ``n`` points, which
+    is the JAX package's ``spacecraft_points(n)`` under the partitionable
+    threefry its tests run (``hrnet_tiny`` has 6 keypoints)."""
+    if not 0 < n <= len(SPACECRAFT_POINTS):
+        raise ValueError(f'spacecraft_points: n={n} outside 1..'
+                         f'{len(SPACECRAFT_POINTS)}')
+    return torch.tensor(SPACECRAFT_POINTS[:n], dtype=torch.float32,
                         device=device)
 
 
@@ -117,21 +133,25 @@ def render_frame(keypoints_2d: torch.Tensor, height: int = 1200,
     return torch.clamp(acc, 0.0, 1.0) * 255.0
 
 
+@lru_cache(maxsize=8)
 def scaled_intrinsics(height: int, width: int, device=None) -> torch.Tensor:
-    """SPEED camera scaled to a non-native frame size."""
-    K = torch.as_tensor(camera.SPEED_K, dtype=torch.float32, device=device)
+    """SPEED camera scaled to a non-native frame size, made once per (size,
+    device): every training batch needs it, and a copy from host memory
+    would make the host wait for the queued kernels.  Shared: do not write
+    to it."""
+    K = camera.speed_k(torch.float32, device)
     s = torch.tensor([width / 1920.0, height / 1200.0, 1.0],
                      dtype=torch.float32, device=device)
     return K * s[:, None]
 
 
-def make_sample(generator: torch.Generator, points_3d: torch.Tensor,
-                batch: int, height: int = 1200, width: int = 1920,
-                render: bool = True) -> Sample:
-    """``batch`` random poses with projected keypoints, a 12-pixel-margin
-    box and (optionally) the rendered frame, on ``points_3d``'s device."""
+def sample_from_pose(q: torch.Tensor, t: torch.Tensor,
+                     points_3d: torch.Tensor, height: int = 1200,
+                     width: int = 1920, render: bool = True) -> Sample:
+    """Poses (B, 4) and (B, 3) -> projected keypoints, a 12-pixel-margin
+    box and (optionally) the rendered frame."""
+    batch = q.shape[0]
     dev = points_3d.device
-    q, t = random_pose(generator, batch, device=dev)
     K = scaled_intrinsics(height, width, dev)
     R = camera.quat_to_rotmat(q)
     uv = camera.project_points(points_3d.expand((batch,) + points_3d.shape),
@@ -146,3 +166,125 @@ def make_sample(generator: torch.Generator, points_3d: torch.Tensor,
              else torch.zeros((batch, height, width), dtype=torch.float32,
                               device=dev))
     return Sample(image=image, bbox=bbox, keypoints_2d=uv, quat=q, trans=t)
+
+
+def make_sample(generator: torch.Generator, points_3d: torch.Tensor,
+                batch: int, height: int = 1200, width: int = 1920,
+                render: bool = True) -> Sample:
+    """``batch`` random poses with projected keypoints, a 12-pixel-margin
+    box and (optionally) the rendered frame, on ``points_3d``'s device."""
+    q, t = random_pose(generator, batch, device=points_3d.device)
+    return sample_from_pose(q, t, points_3d, height, width, render)
+
+
+def draw_batch(generator: torch.Generator, batch_size: int,
+               crop_size: int = 128, augment_geom: bool = False,
+               augment_photo: bool = False, device=None) -> dict:
+    """:func:`make_batch`'s random draws: poses (``quat``, ``trans``);
+    with ``augment_geom`` a flip coin and an in-plane angle in [-pi, pi)
+    per sample (``flip``, ``theta``); with ``augment_photo`` the
+    ``augment.draw_perturb`` dict of the crops (``photo``)."""
+    q, t = random_pose(generator, batch_size, device=device)
+    draws = {'quat': q, 'trans': t}
+    if augment_geom:
+        draws['flip'] = torch.rand((batch_size,), generator=generator,
+                                   device=device) < 0.5
+        draws['theta'] = (torch.rand((batch_size,), generator=generator,
+                                     device=device) * 2.0 - 1.0) * math.pi
+    if augment_photo:
+        draws['photo'] = augment.draw_perturb(generator, batch_size,
+                                              crop_size, crop_size,
+                                              device=device)
+    return draws
+
+
+def make_batch(generator: torch.Generator | None, batch_size: int,
+               points_3d: torch.Tensor, crop_size: int = 128,
+               sigma: float = 2.0, render: bool = True,
+               with_frames: bool = False, height: int = 1200,
+               width: int = 1920, augment_geom: bool = False,
+               augment_photo: bool = False,
+               draws: dict | None = None) -> dict[str, torch.Tensor]:
+    """A training batch on ``points_3d``'s device: crops + heatmap/weight
+    targets (NHWC), as ESADataSet.__getitem__ (data_load4.py:103-203) makes
+    them: box x1.05 square -> keypoints to crop space -> Gaussian targets +
+    weight maps -> normalize.
+
+    The crop imagery is rendered in crop space (Gaussian blobs at the
+    crop-space keypoints with the crop-scaled spot size) instead of
+    rendering 1920x1200 frames and resampling them: the same geometry at
+    about 1% of the pixel work.  ``augment_geom`` flips and rotates the
+    crop-space keypoints before anything is rendered from them (the pose
+    labels are not transformed: such batches train heatmaps only);
+    ``augment_photo`` perturbs the crop imagery (``augment.perturb_capture``).
+    ``with_frames`` also renders the full frames (``frame`` (B, H, W) and
+    full-frame ``keypoints_2d``) so that an evaluation can drive the whole
+    serving path on the samples that made the targets.
+
+    ``draws`` (from :func:`draw_batch`) replaces the generator's draws.
+    """
+    if draws is None:
+        draws = draw_batch(generator, batch_size, crop_size, augment_geom,
+                           augment_photo, device=points_3d.device)
+    s = sample_from_pose(draws['quat'], draws['trans'], points_3d, height,
+                         width, render=False)
+    return batch_from_sample(s, draws, crop_size, sigma, render, with_frames,
+                             height, width, augment_geom, augment_photo)
+
+
+def batch_from_sample(s: Sample, draws: dict, crop_size: int = 128,
+                      sigma: float = 2.0, render: bool = True,
+                      with_frames: bool = False, height: int = 1200,
+                      width: int = 1920, augment_geom: bool = False,
+                      augment_photo: bool = False
+                      ) -> dict[str, torch.Tensor]:
+    """:func:`make_batch` from its samples (poses, full-frame keypoints,
+    boxes; ``s.image`` is not read) and its augmentation draws."""
+    dev = s.keypoints_2d.device
+    batch_size, n_kp = s.keypoints_2d.shape[:2]
+    origins, _, size = crop_ops.adjust_bbox(s.bbox, img_w=width,
+                                            img_h=height)
+    rates = crop_size / size.to(torch.float32)
+    kp_crop = (s.keypoints_2d - origins[:, None, :].to(torch.float32)
+               ) * rates[:, None, None]
+    if augment_geom:
+        c = (crop_size - 1) / 2.0
+        flip = draws['flip'][:, None]
+        x = torch.where(flip, 2.0 * c - kp_crop[..., 0], kp_crop[..., 0]) - c
+        y = kp_crop[..., 1] - c
+        ct = torch.cos(draws['theta'])[:, None]
+        st = torch.sin(draws['theta'])[:, None]
+        kp_crop = torch.stack([c + ct * x - st * y, c + st * x + ct * y],
+                              dim=-1)
+    hm, wm = heatmap_ops.render_targets(kp_crop, crop_size, crop_size, sigma)
+    if render:
+        # per-(sample, keypoint) spot sigma s = sigma_k * rate, as
+        # exp((-d2 / 2) * (1 / s^2)): the JAX package writes
+        # exp(-d2/2) ** (1/s^2), which XLA rewrites to this form, and which
+        # would underflow to 0 away from the spot if evaluated as written
+        sigmas, amps = _spot_params(n_kp, dev)
+        s2 = (sigmas[None, :] * rates[:, None]) ** 2
+        d2 = heatmap_ops.squared_distances(kp_crop, crop_size, crop_size)
+        spot = torch.exp((-d2 / 2.0) * (1.0 / s2[:, :, None, None]))
+        crops = torch.clamp((amps[None, :, None, None] * spot).sum(1),
+                            0.0, 1.0) * 255.0
+    else:
+        crops = torch.zeros((batch_size, crop_size, crop_size),
+                            dtype=torch.float32, device=dev)
+    if augment_photo:
+        crops = augment.perturb_capture(crops, draws['photo'])
+    batch = {
+        'image': crop_ops.normalize(crops)[..., None],      # (B, S, S, 1)
+        'heatmaps': hm.permute(0, 2, 3, 1),                 # NHWC
+        'weights': wm.permute(0, 2, 3, 1),
+        'keypoints_crop': kp_crop,
+        'rate': rates,
+        'origin': origins,
+        'quat': s.quat,
+        'trans': s.trans,
+        'bbox': s.bbox,
+    }
+    if with_frames:
+        batch['frame'] = render_frame(s.keypoints_2d, height, width)
+        batch['keypoints_2d'] = s.keypoints_2d
+    return batch

@@ -9,8 +9,10 @@ the frame) resident with their uncrop transform; the labels stay on the
 host.  Each evaluation then runs only ``pipeline.infer_poses_from_crops``
 per batch, with whatever model it is given.
 
-The first batch keeps its first ``n_panels`` frames and boxes on the host,
-for eval image panels.  ``timing`` splits the build into host decode
+Batches may hold host arrays (a loader's) or tensors (``data.synthetic.
+make_batch(..., with_frames=True)`` on the card).  The first batch keeps
+its first ``n_panels`` frames and boxes on the host, for eval image
+panels.  ``timing`` splits the build into host decode
 (``decode_s``: the loader's iteration) and device crop (``crop_stage_s``).
 """
 
@@ -24,6 +26,10 @@ import torch
 from esa_pose_estimation_tpu_torch import pipeline as pipeline_mod
 from esa_pose_estimation_tpu_torch.data.speed import to_device
 from esa_pose_estimation_tpu_torch.ops import crop as crop_ops
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 class EvalCache:
@@ -52,15 +58,15 @@ class EvalCache:
                 crop_size, img_w=frame_hw[1], img_h=frame_hw[0])
             entry = {
                 'crop': crops, 'rate': rates, 'origin': origins,
-                'quat': np.asarray(b['quat']),
-                'trans': np.asarray(b['trans']),
+                'quat': _host(b['quat']),
+                'trans': _host(b['trans']),
             }
             if 'keypoints_2d' in b:
-                entry['keypoints_2d'] = np.asarray(b['keypoints_2d'])
+                entry['keypoints_2d'] = _host(b['keypoints_2d'])
             if i == 0:
                 # panels only read the first n_panels frames of batch 0
-                entry['frame'] = np.asarray(b['frame'][:n_panels])
-                entry['bbox'] = np.asarray(b['bbox'][:n_panels])
+                entry['frame'] = _host(b['frame'][:n_panels])
+                entry['bbox'] = _host(b['bbox'][:n_panels])
             self.batches.append(entry)
             td = time.perf_counter()
         if dev.type == 'cuda':

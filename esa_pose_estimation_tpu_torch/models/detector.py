@@ -18,14 +18,13 @@ of training.
 from __future__ import annotations
 
 import json
-import math
 import os
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from esa_pose_estimation_tpu_torch.models.layers import ConvBN
+from esa_pose_estimation_tpu_torch.models.layers import ConvBN, lecun_normal_
 from esa_pose_estimation_tpu_torch.ops.nms import batched_nms
 
 _N_DOWN = {8: 3, 16: 4, 32: 5}
@@ -61,15 +60,9 @@ class TinyDetector(nn.Module):
         """Draw the weights as the JAX model initialises them: conv kernels
         LeCun normal (truncated at 2 std), BatchNorm identity, head biases
         0 and the heatmap bias -4.  Draws on the generator's device."""
-        dev = generator.device
         for name, p in self.named_parameters():
             if name.endswith('weight') and p.dim() == 4:
-                fan_in = p[0].numel()
-                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-                w = torch.empty(p.shape, device=dev)
-                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
-                                      generator=generator)
-                p.copy_(w)
+                lecun_normal_(p, generator)
             elif 'BatchNorm' in name:
                 p.fill_(1.0 if name.endswith('weight') else 0.0)
             else:

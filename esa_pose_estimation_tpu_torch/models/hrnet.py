@@ -23,7 +23,9 @@ from esa_pose_estimation_tpu_torch.models.layers import (
     BLOCKS,
     CBAM,
     BatchNorm,
+    Conv,
     ConvBN,
+    lecun_normal_,
     resize_bilinear,
 )
 from esa_pose_estimation_tpu_torch.utils.config import HRNetConfig, StageConfig
@@ -193,8 +195,8 @@ class HRNet(nn.Module):
         self.cfg = cfg
         self.dtype = dtype
         c = cfg
-        self.stem_conv1 = nn.Conv2d(c.in_channels, c.stem_channels, 3,
-                                    padding=1, bias=False, dtype=dtype)
+        self.stem_conv1 = Conv(c.in_channels, c.stem_channels, 3,
+                               dtype=dtype)
         self.stem_bn1 = BatchNorm(c.stem_channels)
         self.ConvBN_0 = ConvBN(c.stem_channels, c.stem_channels, 3, 2,
                                dtype=dtype)
@@ -233,9 +235,26 @@ class HRNet(nn.Module):
             skip_ch = c.stem_channels
         else:
             skip_ch = c.in_channels
-        self.output_conv = nn.Conv2d(c.num_keypoints + skip_ch,
-                                     c.num_keypoints, 3, padding=1,
-                                     bias=True, dtype=dtype)
+        self.output_conv = Conv(c.num_keypoints + skip_ch, c.num_keypoints,
+                                3, bias=True, dtype=dtype)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> HRNet:
+        """Draw the weights as the JAX model initialises them (Flax's
+        defaults): conv kernels LeCun normal, conv biases 0, BatchNorm
+        identity with zero mean and unit variance.  Draws on the
+        generator's device."""
+        for m in self.modules():
+            if isinstance(m, Conv):
+                lecun_normal_(m.weight, generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, BatchNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+        return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg

@@ -3,8 +3,9 @@
 
 Internally the network runs NCHW tensors; the serving model keeps them in
 ``torch.channels_last`` memory, so an NHWC view of any activation is free.
-Convolutions compute in the model dtype (bf16 for serving) with weights
-stored in that dtype; BatchNorm computes in f32 from f32 statistics, then
+Parameters are f32 masters, as Flax keeps them: :class:`Conv` casts its
+input, kernel and bias to the model dtype (bf16 for serving and training)
+at use, as ``nn.Conv(dtype=...)`` does.  BatchNorm computes in f32, then
 ReLU, then casts back to the model dtype, as the reference does.
 
 Submodule attribute names follow the Flax auto-numbering of the JAX model
@@ -12,10 +13,16 @@ Submodule attribute names follow the Flax auto-numbering of the JAX model
 parameter tree maps leaf by leaf onto this module tree
 (``utils/artifact.from_jax_variables``).
 
-Inference only: BatchNorm always normalizes with its running statistics.
+BatchNorm follows Flax's rule in both modes: running statistics in eval
+mode; under ``model.train()`` the batch statistics, with the running ones
+updated as ``m * running + (1 - m) * batch`` at a per-site momentum m (0.9
+in the residual-block bodies, 0.99 everywhere else, as the JAX model sets
+them after the reference).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -74,29 +81,86 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm in f32 (eps 1e-5):
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, Flax's op order."""
+    """Flax's BatchNorm in f32 (eps 1e-5), op order
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    Eval mode normalizes with the running statistics.  Training mode takes
+    the batch mean and ``var = mean(x^2) - mean(x)^2`` clipped at 0 over
+    (N, H, W) (flax's ``use_fast_variance``), normalizes with them, and
+    updates ``running = momentum * running + (1 - momentum) * batch`` with
+    that biased variance.  ``nn.BatchNorm2d`` stores the unbiased variance
+    and counts momentum the other way, so it is not used.
+    """
+
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.99):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer('running_mean', torch.zeros(channels))
         self.register_buffer('running_var', torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.to(torch.float32) - self.running_mean[:, None, None]) \
-            * mul[:, None, None]
+        x = x.to(torch.float32)
+        if self.training:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1.0 - m) * mean)
+                self.running_var.mul_(m).add_((1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x - mean[:, None, None]) * mul[:, None, None]
         return y + self.bias[:, None, None]
 
 
-def _conv(cin: int, cout: int, kernel: int, stride: int = 1,
-          bias: bool = False, dtype=torch.float32) -> nn.Conv2d:
-    # integer padding k//2 on both sides, the stride-2 convs included
-    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2,
-                     bias=bias, dtype=dtype)
+class Conv(nn.Conv2d):
+    """A conv with f32 parameters that computes in ``dtype``: input, kernel
+    and bias are cast at use, as Flax's ``nn.Conv(dtype=...)`` casts them.
+    Padding is k//2 on both sides, the stride-2 convs included.  A serving
+    model may store the parameters in ``dtype`` already
+    (:func:`store_in_compute_dtype`); the cast is then a no-op."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
+                 bias: bool = False, dtype=torch.float32):
+        super().__init__(cin, cout, kernel, stride=stride,
+                         padding=kernel // 2, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride,
+                        self.padding)
+
+
+@torch.no_grad()
+def lecun_normal_(p: torch.Tensor, generator: torch.Generator) -> None:
+    """Fill a conv kernel (O, I, kh, kw) as Flax's default initialiser
+    does: LeCun normal, truncated at 2 std, drawn on the generator's
+    device."""
+    fan_in = p[0].numel()
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    w = torch.empty(p.shape, device=generator.device)
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                          generator=generator)
+    p.copy_(w)
+
+
+def store_in_compute_dtype(model: nn.Module) -> nn.Module:
+    """Cast every :class:`Conv`'s parameters to its compute dtype, in
+    place: the serving form, which spends no cast per forward.  bf16(f32
+    master) is the bf16 the forward would cast to, so the outputs are
+    bit-equal to those of the f32 masters.  Not for training."""
+    for m in model.modules():
+        if isinstance(m, Conv):
+            m.to(m.compute_dtype)
+    return model
 
 
 # Serving-time int8 dispatch of the ConvBNs built with ``int8_serving=True``
@@ -117,16 +181,18 @@ class ConvBN(nn.Module):
 
     def __init__(self, cin: int, features: int, kernel: int = 3,
                  stride: int = 1, relu: bool = True, dtype=torch.float32,
-                 int8_serving: bool = False):
+                 int8_serving: bool = False, bn_momentum: float = 0.99):
         super().__init__()
         self.relu = relu
         self.dtype = dtype
         self.stride = stride
         self.int8_serving = int8_serving
-        self.Conv_0 = _conv(cin, features, kernel, stride, dtype=dtype)
-        self.BatchNorm_0 = BatchNorm(features)
+        self.Conv_0 = Conv(cin, features, kernel, stride, dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(features, momentum=bn_momentum)
 
     def _int8_forward(self, x: torch.Tensor) -> torch.Tensor:
+        # the stored kernel (f32 master, or bf16 in the serving form), as
+        # the JAX model quantizes its f32 parameter
         w = self.Conv_0.weight.to(torch.float32).permute(2, 3, 1, 0)  # HWIO
         w_q, s_w = quantize_weights_per_channel(w)
         y = int8_conv(x.permute(0, 2, 3, 1), w_q, s_w, stride=self.stride)
@@ -153,8 +219,8 @@ class ChannelAttention(nn.Module):
     def __init__(self, channels: int, ratio: int = 16, dtype=torch.float32):
         super().__init__()
         hidden = max(channels // ratio, 1)
-        self.Conv_0 = _conv(channels, hidden, 1, dtype=dtype)
-        self.Conv_1 = _conv(hidden, channels, 1, dtype=dtype)
+        self.Conv_0 = Conv(channels, hidden, 1, dtype=dtype)
+        self.Conv_1 = Conv(hidden, channels, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         avg = x.mean(dim=(2, 3), keepdim=True)
@@ -171,7 +237,7 @@ class SpatialAttention(nn.Module):
 
     def __init__(self, kernel: int = 7, dtype=torch.float32):
         super().__init__()
-        self.Conv_0 = _conv(2, 1, kernel, dtype=dtype)
+        self.Conv_0 = Conv(2, 1, kernel, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = torch.cat([x.mean(dim=1, keepdim=True),
@@ -205,6 +271,8 @@ class CBAM(nn.Module):
     def forward(self, x: torch.Tensor,
                 residual: torch.Tensor | None = None) -> torch.Tensor:
         if FUSED_CBAM and not self.training:
+            # the stored weights, f32 masters or the bf16 serving form, as
+            # the JAX model hands its f32 parameters to the kernel
             ca = self.ChannelAttention_0
             fc1 = ca.Conv_0.weight[:, :, 0, 0].t()               # (C, C/16)
             fc2 = ca.Conv_1.weight[:, :, 0, 0].t()               # (C/16, C)
@@ -229,9 +297,12 @@ class BasicBlock(nn.Module):
                  with_cbam: bool = True, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
-        self.ConvBN_0 = ConvBN(cin, features, 3, stride, dtype=dtype)
+        # the block body at the reference's torch-default momentum 0.1
+        # (Flax 0.9); the downsample at BN_MOMENTUM 0.01 (Flax 0.99)
+        self.ConvBN_0 = ConvBN(cin, features, 3, stride, dtype=dtype,
+                               bn_momentum=0.9)
         self.ConvBN_1 = ConvBN(features, features, 3, 1, relu=False,
-                               dtype=dtype)
+                               dtype=dtype, bn_momentum=0.9)
         self.downsample = stride != 1 or cin != features
         if self.downsample:
             self.ConvBN_2 = ConvBN(cin, features, 1, stride, relu=False,
@@ -255,10 +326,12 @@ class Bottleneck(nn.Module):
         super().__init__()
         self.dtype = dtype
         out_ch = features * 4
-        self.ConvBN_0 = ConvBN(cin, features, 1, 1, dtype=dtype)
-        self.ConvBN_1 = ConvBN(features, features, 3, stride, dtype=dtype)
+        self.ConvBN_0 = ConvBN(cin, features, 1, 1, dtype=dtype,
+                               bn_momentum=0.9)
+        self.ConvBN_1 = ConvBN(features, features, 3, stride, dtype=dtype,
+                               bn_momentum=0.9)
         self.ConvBN_2 = ConvBN(features, out_ch, 1, 1, relu=False,
-                               dtype=dtype)
+                               dtype=dtype, bn_momentum=0.9)
         self.downsample = stride != 1 or cin != out_ch
         if self.downsample:
             self.ConvBN_3 = ConvBN(cin, out_ch, 1, stride, relu=False,

@@ -11,6 +11,7 @@ Algorithm: Lepetit, Moreno-Noguer, Fua, IJCV 2009.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple
 
 import numpy as np
@@ -124,6 +125,15 @@ def _start_basis(m: int, k: int) -> np.ndarray:
     return np.linalg.qr(rng.normal(size=(m, k)))[0]
 
 
+@lru_cache(maxsize=8)
+def _start_basis_tensor(m: int, k: int, dtype: torch.dtype,
+                        device: torch.device) -> torch.Tensor:
+    """:func:`_start_basis` on ``device``, copied once: a copy from host
+    memory on every call would make the host wait for the queued kernels
+    (the JAX package bakes it into the jitted program)."""
+    return torch.as_tensor(_start_basis(m, k), dtype=dtype, device=device)
+
+
 def smallest_eigvecs(A: torch.Tensor, k: int = 4,
                      iters: int = 4) -> torch.Tensor:
     """The k eigenvectors of smallest eigenvalue of a batched PSD matrix via
@@ -134,7 +144,7 @@ def smallest_eigvecs(A: torch.Tensor, k: int = 4,
     tr = torch.diagonal(A, dim1=-2, dim2=-1).sum(-1)
     ridge = (1e-6 * tr / m + 1e-12)[..., None, None]
     L = linalg.cholesky_small(A + ridge * eye)
-    X0 = torch.as_tensor(_start_basis(m, k), dtype=A.dtype, device=A.device)
+    X0 = _start_basis_tensor(m, k, A.dtype, A.device)
     X = X0.expand(A.shape[:-2] + (m, k))
     for _ in range(iters):
         X = _gram_schmidt(linalg.cho_solve_small(L, X))
@@ -150,15 +160,26 @@ def _barycentric(points_3d: torch.Tensor, ctrl: torch.Tensor) -> torch.Tensor:
     return torch.cat([alpha0, beta], dim=-1)
 
 
+@lru_cache(maxsize=8)
+def _pair_index(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """:data:`_PAIR_A` and :data:`_PAIR_B` as index tensors on ``device``,
+    made once: indexing with the tuples copies them to the device on every
+    call, and the copy makes the host wait for the queued kernels."""
+    return (torch.tensor(_PAIR_A, device=device),
+            torch.tensor(_PAIR_B, device=device))
+
+
 def _ctrl_distances(ctrl: torch.Tensor) -> torch.Tensor:
     """The 6 pairwise distances between 4 control points -> (..., 6)."""
-    diff = ctrl[..., _PAIR_A, :] - ctrl[..., _PAIR_B, :]
+    a, b = _pair_index(ctrl.device)
+    diff = ctrl[..., a, :] - ctrl[..., b, :]
     return torch.linalg.vector_norm(diff, dim=-1)
 
 
 def _pair_diffs(V: torch.Tensor) -> torch.Tensor:
     Vc = V.reshape(V.shape[:-1] + (4, 3))          # (..., basis, ctrl, xyz)
-    return Vc[..., :, _PAIR_A, :] - Vc[..., :, _PAIR_B, :]   # (..., nb, 6, 3)
+    a, b = _pair_index(V.device)
+    return Vc[..., :, a, :] - Vc[..., :, b, :]     # (..., nb, 6, 3)
 
 
 def _refine_betas(betas0: torch.Tensor, V: torch.Tensor, dist_w: torch.Tensor,

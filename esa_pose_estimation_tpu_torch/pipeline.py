@@ -114,7 +114,7 @@ def infer_poses_from_crops(model, crops: torch.Tensor, rates: torch.Tensor,
     """
     dev = crops.device
     if K is None:
-        K = torch.as_tensor(camera.SPEED_K, dtype=torch.float32, device=dev)
+        K = camera.speed_k(torch.float32, dev)
     points_3d = points_3d.to(device=dev, dtype=torch.float32)
     with record_function('hrnet'):
         x = crop_ops.normalize(crops, norm_mean, norm_std)[..., None]

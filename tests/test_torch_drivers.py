@@ -11,7 +11,8 @@ Tolerances:
 - the commands on the r5 weights, on four 1920x1200 frames 10-12 m deep
   written as PNGs.  The JAX side reads the same weights from an orbax
   ``last`` checkpoint that the test writes, and builds its network in f32
-  (see ``jax_f32``); the port serves bf16, as on the card.  The RANSAC
+  (see ``_jax_f32``); the port reads them from the npz artifact and from a
+  port ``last`` checkpoint, and serves bf16, as on the card.  The RANSAC
   draws differ between the packages (``torch.Generator`` against
   ``PRNGKey``).  Measured on this split: the evaluation scores differ by
   at most 2.0e-4 and the pixel error by 1.8e-3 px; the submitted poses by
@@ -123,8 +124,7 @@ def jax_workdir(tmp_path_factory):
     return wd
 
 
-@pytest.fixture
-def jax_f32(monkeypatch):
+def _jax_f32(mp):
     """The JAX commands build their network in f32 here: the bf16 one
     takes about 80 s to compile on the CPU, f32 about 30.  Flax keeps the
     parameters in f32 either way, so the checkpoint is the same.  Their
@@ -136,44 +136,96 @@ def jax_f32(monkeypatch):
 
     def template(model, cfg, rng, input_shape, steps_per_epoch=1000):
         return _r5_train_state(cfg, steps_per_epoch)
-    monkeypatch.setattr(jevaluate, 'HRNet', f32_hrnet)
-    monkeypatch.setattr(jsubmit, 'HRNet', f32_hrnet)
-    monkeypatch.setattr(jstate, 'create_train_state', template)
+    mp.setattr(jevaluate, 'HRNet', f32_hrnet)
+    mp.setattr(jsubmit, 'HRNet', f32_hrnet)
+    mp.setattr(jstate, 'create_train_state', template)
 
 
-def test_evaluate_main_matches_jax(split, jax_workdir, jax_f32, tmp_path):
+EVAL_ARGS = ['--batch-size', '4']
+# the r5 net's own crop rule and normalisation: under the submission
+# defaults (the 'val' rule, mean 0.485) the r5 net misplaces keypoints on
+# two of these frames in both packages, and those poses then differ by the
+# RANSAC draws alone
+SUBMIT_ARGS = ['--batch-size', '4', '--crop-rule', 'train', '--norm-mean',
+               '0.449']
+
+
+@pytest.fixture(scope='module')
+def jax_results(split, jax_workdir):
+    """The JAX commands on the split, once: evaluate's result and its
+    ``load_esa.txt`` row, and submit's CSV rows."""
     pkl, root, _ = split
-    common = ['--test-pkl', pkl, '--image-root', root, '--batch-size', '4']
-    want = jevaluate.main(['--workdir', jax_workdir, '--checkpoint', 'last']
-                          + common)
-    got = tevaluate.main(['--artifact', ARTIFACT, '--workdir', str(tmp_path),
-                          '--device', 'cpu'] + common)
+    common = ['--test-pkl', pkl, '--image-root', root]
+    with pytest.MonkeyPatch.context() as mp:
+        _jax_f32(mp)
+        ev = jevaluate.main(['--workdir', jax_workdir, '--checkpoint',
+                             'last'] + common + EVAL_ARGS)
+        path = jsubmit.main(['--workdir', jax_workdir, '--checkpoint',
+                             'last', '--suffix', 'jax'] + common
+                            + SUBMIT_ARGS)
+    row = open(os.path.join(jax_workdir, 'load', 'load_esa.txt')
+               ).read().split('\n')[-2].split('\t')
+    return ev, row, list(csv.reader(open(path)))
+
+
+@pytest.fixture(scope='module')
+def port_workdir(tmp_path_factory):
+    """A port training run's ``last`` checkpoint holding the r5 weights
+    (f32 masters of the bf16 model, with its Adam state)."""
+    from esa_pose_estimation_tpu_torch.models.hrnet import HRNet
+    from esa_pose_estimation_tpu_torch.train import checkpoint as tckpt
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+    from esa_pose_estimation_tpu_torch.utils import config as tcfg
+    from esa_pose_estimation_tpu_torch.utils.artifact import (
+        from_jax_variables,
+        read_artifact,
+    )
+    variables, _ = read_artifact(ARTIFACT)
+    model = HRNet(tcfg.hrnet_esa(), dtype=torch.bfloat16)
+    model.load_state_dict(from_jax_variables(variables), strict=True)
+    wd = str(tmp_path_factory.mktemp('port_run'))
+    tckpt.CheckpointManager(os.path.join(wd, 'net_esa')).save(
+        tckpt.LAST, tstate.create_train_state(model, tcfg.TrainConfig()), 39)
+    return wd
+
+
+def _assert_evaluate_agrees(got, jax_results, load_file, name):
+    want, jrow, _ = jax_results
     assert set(got) == set(want) and got['nonfinite'] == 0
     for k, tol in (('score_t', 1e-3), ('score_r', 1e-3), ('speed', 1e-3),
                    ('pix_err', 1e-2)):
         assert abs(got[k] - want[k]) <= tol, (k, got[k], want[k])
     assert got['speed'] <= 0.02
-    jrow = open(os.path.join(jax_workdir, 'load', 'load_esa.txt')
-                ).read().split('\n')[-2].split('\t')
-    trow = open(tmp_path / 'load' / 'load_esa.txt').read().strip().split('\t')
-    assert trow[:2] == ['esa', 'esa_syn_r5.npz'] and jrow[0] == 'esa'
+    trow = open(load_file).read().strip().split('\n')[-1].split('\t')
+    assert trow[:2] == ['esa', name] and jrow[0] == 'esa'
     np.testing.assert_allclose([float(v) for v in trow[2:]],
                                [float(v) for v in jrow[2:]], atol=1e-2)
 
 
-def test_submit_main_matches_jax(split, jax_workdir, jax_f32, tmp_path):
-    """With the r5 net's own crop rule and normalisation: under the
-    submission defaults (the 'val' rule, mean 0.485) the r5 net misplaces
-    keypoints on two of these frames in both packages, and those poses
-    then differ by the RANSAC draws alone."""
-    pkl, root, s = split
-    common = ['--test-pkl', pkl, '--image-root', root, '--batch-size', '4',
-              '--crop-rule', 'train', '--norm-mean', '0.449']
-    jpath = jsubmit.main(['--workdir', jax_workdir, '--checkpoint', 'last',
-                          '--suffix', 'jax'] + common)
-    tpath = tsubmit.main(['--artifact', ARTIFACT, '--workdir', str(tmp_path),
-                          '--suffix', 'torch', '--device', 'cpu'] + common)
-    jrows = list(csv.reader(open(jpath)))
+def test_evaluate_main_matches_jax(split, jax_results, tmp_path):
+    pkl, root, _ = split
+    got = tevaluate.main(['--artifact', ARTIFACT, '--workdir', str(tmp_path),
+                          '--device', 'cpu', '--test-pkl', pkl,
+                          '--image-root', root] + EVAL_ARGS)
+    _assert_evaluate_agrees(got, jax_results,
+                            tmp_path / 'load' / 'load_esa.txt',
+                            'esa_syn_r5.npz')
+
+
+def test_evaluate_checkpoint_route_matches_jax(split, jax_results,
+                                               port_workdir):
+    """``--workdir --checkpoint last`` on a port checkpoint of the same
+    weights, as the JAX command reads its orbax one."""
+    pkl, root, _ = split
+    got = tevaluate.main(['--workdir', port_workdir, '--checkpoint', 'last',
+                          '--device', 'cpu', '--test-pkl', pkl,
+                          '--image-root', root] + EVAL_ARGS)
+    _assert_evaluate_agrees(got, jax_results, os.path.join(
+        port_workdir, 'load', 'load_esa.txt'), 'last')
+
+
+def _assert_submission_agrees(tpath, jax_results):
+    jrows = jax_results[2]
     trows = list(csv.reader(open(tpath)))
     assert len(trows) == 4 and all(len(r) == 8 for r in trows)
     assert [r[0] for r in trows] == [r[0] for r in jrows] == \
@@ -186,6 +238,26 @@ def test_submit_main_matches_jax(split, jax_workdir, jax_f32, tmp_path):
     rel = (np.linalg.norm(tv[:, 4:] - jv[:, 4:], axis=-1)
            / np.linalg.norm(jv[:, 4:], axis=-1))
     assert ang.max() <= 2e-3 and rel.max() <= 2e-3, (ang, rel)
+
+
+def test_submit_main_matches_jax(split, jax_results, tmp_path):
+    pkl, root, _ = split
+    tpath = tsubmit.main(['--artifact', ARTIFACT, '--workdir', str(tmp_path),
+                          '--suffix', 'torch', '--device', 'cpu',
+                          '--test-pkl', pkl, '--image-root', root]
+                         + SUBMIT_ARGS)
+    _assert_submission_agrees(tpath, jax_results)
+
+
+def test_submit_checkpoint_route_matches_jax(split, jax_results,
+                                             port_workdir):
+    pkl, root, _ = split
+    tpath = tsubmit.main(['--workdir', port_workdir, '--checkpoint', 'last',
+                          '--suffix', 'ckpt', '--device', 'cpu',
+                          '--test-pkl', pkl, '--image-root', root]
+                         + SUBMIT_ARGS)
+    assert os.path.dirname(tpath) == port_workdir
+    _assert_submission_agrees(tpath, jax_results)
 
 
 def test_submit_defaults_are_the_jax_ones(monkeypatch, tmp_path, split):
@@ -365,12 +437,29 @@ def test_average_meter_matches_jax():
 
 
 @pytest.mark.parametrize('cli', [tevaluate, tsubmit])
-@pytest.mark.parametrize('argv,msg', [
-    ([], 'needs --artifact'),
-    (['--workdir', 'runs/x', '--checkpoint', 'last'], 'ROADMAP item 11'),
-    (['--artifact', ARTIFACT, '--checkpoint', 'best_rotate'], 'training'),
-    (['--artifact', ARTIFACT, '--tiny'], "flags select 'hrnet_tiny'"),
+@pytest.mark.parametrize('argv,exc,msg', [
+    # no --artifact: the checkpoint route, with no checkpoint to read
+    pytest.param(['--workdir', '{empty}'], FileNotFoundError,
+                 r"'best_rotate' not found .*\(available: \[\]\)",
+                 id='argv0-needs --artifact'),
+    # a checkpoint name the run does not have: the names it has
+    pytest.param(['--workdir', '{port}', '--checkpoint', 'best_tran'],
+                 FileNotFoundError,
+                 r"'best_tran' not found .*\(available: \['last'\]\)",
+                 id='argv1-ROADMAP item 11'),
+    # --artifact wins over --checkpoint, as in the JAX eval_synthetic: the
+    # missing checkpoint is never read, and the command gets as far as
+    # its test split
+    pytest.param(['--artifact', ARTIFACT, '--workdir', '{empty}',
+                  '--checkpoint', 'best_rotate'], FileNotFoundError,
+                 'none.pkl', id='argv2-training'),
+    pytest.param(['--artifact', ARTIFACT, '--tiny'], SystemExit,
+                 "flags select 'hrnet_tiny'",
+                 id="argv3-flags select 'hrnet_tiny'"),
 ])
-def test_commands_refuse_what_they_cannot_run(cli, argv, msg):
-    with pytest.raises(SystemExit, match=msg):
+def test_commands_refuse_what_they_cannot_run(cli, argv, exc, msg, tmp_path,
+                                              port_workdir):
+    argv = [a.format(empty=str(tmp_path / 'none'), port=port_workdir)
+            for a in argv]
+    with pytest.raises(exc, match=msg):
         cli.main(argv + ['--test-pkl', 'none.pkl', '--device', 'cpu'])

@@ -83,11 +83,18 @@ def test_summary_of_no_finite_frame_is_null():
     assert got['pix_err_px'] == 0.0 and 'error' in got
 
 
-@pytest.mark.parametrize('argv,msg', [
-    ([], 'needs --artifact'),
-    (['--artifact', ARTIFACT, '--tiny'], "flags select 'hrnet_tiny'"),
-    (['--artifact', ARTIFACT, '--crop-size', '96'], 'expects --crop-size'),
+@pytest.mark.parametrize('argv,exc,msg', [
+    # no --artifact: the checkpoint route, and a run with no checkpoint
+    pytest.param(['--workdir', '{tmp}'], FileNotFoundError,
+                 r"'best_rotate' not found .*\(available: \[\]\)",
+                 id='argv0-needs --artifact'),
+    pytest.param(['--artifact', ARTIFACT, '--tiny'], SystemExit,
+                 "flags select 'hrnet_tiny'",
+                 id="argv1-flags select 'hrnet_tiny'"),
+    pytest.param(['--artifact', ARTIFACT, '--crop-size', '96'], SystemExit,
+                 'expects --crop-size', id='argv2-expects --crop-size'),
 ])
-def test_refuses_what_it_cannot_evaluate(argv, msg):
-    with pytest.raises(SystemExit, match=msg):
+def test_refuses_what_it_cannot_evaluate(argv, exc, msg, tmp_path):
+    argv = [a.format(tmp=str(tmp_path / 'run')) for a in argv]
+    with pytest.raises(exc, match=msg):
         eval_synthetic.main(argv + ['--device', 'cpu'])

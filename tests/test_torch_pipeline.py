@@ -123,6 +123,41 @@ def test_crop_split_is_exact(slice_run):
     assert torch.equal(tail.trans, tout.trans)
 
 
+def test_host_constants_are_copied_once(slice_run, monkeypatch):
+    """The serving tail's constants, the EPnP start basis, its control-point
+    pair indices and SPEED_K, are made once per (dtype, device) and
+    reused; the results are ``torch.equal`` to those of a fresh host copy
+    on every call."""
+    from esa_pose_estimation_tpu_torch.core import camera
+    from esa_pose_estimation_tpu_torch.ops import epnp
+    _, frames, boxes, model, masks, _, tout, kw = slice_run
+    g = torch.Generator().manual_seed(0)
+    B = torch.randn((5, 12, 12), generator=g)
+    A = B @ B.transpose(-1, -2)
+    cached = epnp.smallest_eigvecs(A)
+    basis = epnp._start_basis_tensor(12, 4, A.dtype, A.device)
+    assert basis is epnp._start_basis_tensor(12, 4, A.dtype, A.device)
+    assert camera.speed_k(torch.float32, torch.device('cpu')) is \
+        camera.speed_k(torch.float32, torch.device('cpu'))
+
+    def fresh_basis(m, k, dtype, device):
+        return torch.as_tensor(epnp._start_basis(m, k), dtype=dtype,
+                               device=device)
+    monkeypatch.setattr(epnp, '_start_basis_tensor', fresh_basis)
+    dev = torch.device('cpu')
+    assert epnp._pair_index(dev)[0] is epnp._pair_index(dev)[0]
+    monkeypatch.setattr(epnp, '_pair_index', lambda device: (
+        torch.tensor(epnp._PAIR_A), torch.tensor(epnp._PAIR_B)))
+    assert torch.equal(epnp.smallest_eigvecs(A), cached)
+    crops, rates, origins = tcrop.crop_resize(T(frames), T(boxes), 128)
+    fresh = tpipe.infer_poses_from_crops(
+        model, crops, rates, origins, tsyn.spacecraft_points(),
+        K=torch.as_tensor(camera.SPEED_K, dtype=torch.float32),
+        ransac_masks=T(masks), **kw)
+    for f in ('quat', 'trans', 'R', 'keypoints_2d'):
+        assert torch.equal(getattr(fresh, f), getattr(tout, f)), f
+
+
 def test_flip_tta_and_no_disambiguation_run(slice_run):
     _, frames, boxes, model, masks, _, _, kw = slice_run
     for extra in (dict(flip_tta=True), dict(disambiguate=False),

@@ -5,6 +5,7 @@ import ast
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 from esa_pose_estimation_tpu.data import synthetic as jsyn
@@ -35,6 +36,11 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / 'esa_pose_estimation_tpu_torch').rglob('*.py'))
     files.append(ROOT / 'chip_smoke.py')
     assert len(files) > 15
+    names = {str(f.relative_to(ROOT / 'esa_pose_estimation_tpu_torch'))
+             for f in files[:-1]}
+    assert {'train/loss.py', 'train/state.py', 'train/checkpoint.py',
+            'obs/logger.py', 'obs/tbevents.py', 'cli/train.py',
+            'data/augment.py', 'data/pipeline.py', 'ops/heatmap.py'} <= names
     bad = {str(f.relative_to(ROOT)): sorted(m for m in _imported_modules(f)
                                             if _forbidden(m))
            for f in files}
@@ -137,3 +143,58 @@ def test_cpu_entry_points_never_touch_cuda(monkeypatch, tmp_path):
     assert 0 <= res['nonfinite'] <= 2 and 'speed' in res
     path = submit.main(common + ['--suffix', 'cpu'])
     assert len(open(path).read().strip().split('\n')) == 2
+
+
+def test_cpu_training_never_touches_cuda(monkeypatch, tmp_path):
+    """A tiny training run with both augmentations and an eval, then
+    eval_synthetic --perturb and the artifact export on its checkpoint, on
+    the CPU: no CUDA call and no kernel build."""
+    from esa_pose_estimation_tpu_torch import _build
+    from esa_pose_estimation_tpu_torch.cli import eval_synthetic, train
+    from esa_pose_estimation_tpu_torch.utils import artifact
+
+    def refuse(*a, **k):
+        raise AssertionError('CUDA touched on a CPU path')
+
+    monkeypatch.setattr(torch.cuda, '_lazy_init', refuse)
+    monkeypatch.setattr(torch.cuda, 'current_stream', refuse)
+    monkeypatch.setattr(_build, 'load', refuse)
+    monkeypatch.setattr(_build, 'build_all', refuse)
+    wd = str(tmp_path / 'run')
+    train.main(['--workdir', wd, '--tiny', '--epochs', '1', '--batch-size',
+                '4', '--crop-size', '32', '--synthetic-size', '8',
+                '--eval-every', '1', '--augment-geom', '--augment-photo',
+                '--device', 'cpu'])
+    rec = eval_synthetic.main(['--workdir', wd, '--checkpoint', 'last',
+                               '--tiny', '--crop-size', '32', '--frames',
+                               '2', '--batch-size', '2', '--n-hypotheses',
+                               '8', '--perturb', '--device', 'cpu'])
+    assert rec['frames'] + rec['nonfinite_frames'] == 2
+    out = str(tmp_path / 'tiny.npz')
+    artifact.main(['--workdir', wd, '--checkpoint', 'last', '--tiny',
+                   '--out', out, '--crop-size', '32', '--device', 'cpu'])
+    assert artifact.read_meta(out)['model'] == 'hrnet_tiny'
+
+
+def test_commands_ask_for_the_card_by_default(monkeypatch, tmp_path):
+    """Without --device the commands want cuda; with no card they raise
+    rather than run on the CPU."""
+    from esa_pose_estimation_tpu_torch.cli import (
+        eval_synthetic,
+        evaluate,
+        submit,
+        train,
+    )
+    from esa_pose_estimation_tpu_torch.utils import artifact
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    art = ['--artifact', 'artifacts/esa_syn_r5.npz']
+    for main, argv in (
+            (train.main, ['--workdir', str(tmp_path / 'r'), '--tiny']),
+            (eval_synthetic.main, art),
+            (evaluate.main, art + ['--test-pkl', 'none.pkl']),
+            (submit.main, art + ['--test-pkl', 'none.pkl']),
+            (artifact.main, ['--workdir', str(tmp_path), '--out',
+                             str(tmp_path / 'x.npz')])):
+        with pytest.raises(RuntimeError, match='cuda requested'):
+            main(argv)
+    assert not (tmp_path / 'r' / 'net_esa').exists()
