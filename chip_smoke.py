@@ -65,6 +65,27 @@ ground truth, and times the path.  Phases:
                  (median <= 0.01) with K1's launches; (d) cli.train --tiny
                  on the card, cli.eval_synthetic --checkpoint best_rotate
                  and the artifact export on its run
+ 13. detector    cli.train_detector at the JAX round-5 recipe (width 32,
+                 stride 16, downscale 8, 16 epochs of 50 steps at batch
+                 16, --augment): every loss finite, clean and perturbed
+                 det@0.5 >= 0.95, seconds per epoch and ms per step; then
+                 cli.eval_synthetic --detector-workdir on the 128 held-out
+                 frames (median <= 0.01, no full-frame fallback, K1
+                 launches) and detect_and_infer at batch 256 with the
+                 trained and with seeded weights, in turns
+ 14. shards      the native loader built from native/src/shard_loader.cpp;
+                 raw (512) and PNG (256) SPD1 shards of 1920x1200 frames;
+                 their batches against the device route on the same
+                 frames (equal from frames, 0.05 grey levels from host
+                 crops, pinned); hrnet_esa from r5 trained from them at
+                 batch 32 and 256, frames and host crop: images/s beside
+                 12b's, the host's wait on the loader, host-to-device ms,
+                 peak memory, finite losses; cli.train --train-shard
+                 --host-crop with K1 in its in-train eval
+ 15. group       three f32 hrnet_tiny steps in a one-rank NCCL group
+                 (wrap_data_parallel, the group-aware BatchNorm) against
+                 the same steps with no group, at 12a's tolerances; the
+                 group is destroyed after
 
 Kernel and plain times (``ms``, ``plain_ms``) are means of eager calls
 between CUDA events, host cost included, as in earlier PRs; K1 and K2 are
@@ -74,8 +95,9 @@ also timed with the same calls replayed from a CUDA graph
 exit code is non-zero and the final line is not printed.  The line before
 the last is a JSON record of each kernel (launches on its main path: the
 serving call for K1 and K2, the branch-chain experiment for K3; for K1
-also its launches in one detect_and_infer call and in phase 12c's
-in-train evaluate; error
+also its launches in one detect_and_infer call, in phase 12c's
+in-train evaluate, in phase 13's two-stage eval and in phase 14's
+shard-fed in-train evaluate; error
 against its plain version, times, bound); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1350,10 +1372,10 @@ def profile_train(st, batch) -> None:
             'launches')
 
 
-def train_throughput(pts) -> None:
+def train_throughput(pts) -> dict[int, float]:
     """12b: full width from r5 (bf16 compute, f32 masters): steps/s,
     images/s, peak memory and share of the bf16 peak at batch 32 and 256,
-    then the profile of a batch-256 step."""
+    then the profile of a batch-256 step.  Returns images/s by batch."""
     from esa_pose_estimation_tpu_torch.data import synthetic
     from esa_pose_estimation_tpu_torch.train import state as tstate
     from esa_pose_estimation_tpu_torch.utils import config
@@ -1363,6 +1385,7 @@ def train_throughput(pts) -> None:
         f'per image, a step about 3x: {3 * fwd / 1e9:.1f} GFLOP per image')
     st = tstate.create_train_state(model, config.TrainConfig())
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 22)
+    rates = {}
     for batch, warm, iters in TRAIN_RUNS:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1383,6 +1406,7 @@ def train_throughput(pts) -> None:
             raise AssertionError(f'train: loss {float(m["loss"])} at batch '
                                  f'{batch}')
         share = 3 * fwd * batch / dt / BF16_OPS_PER_S
+        rates[batch] = batch / dt
         log(f'train throughput: batch {batch}: {1 / dt:.2f} steps/s, '
             f'{batch / dt:.1f} img/s ({dt * 1e3:.1f} ms per step), peak '
             f'memory {peak:.2f} GiB, {100 * share:.2f}% of the bf16 peak; '
@@ -1396,6 +1420,7 @@ def train_throughput(pts) -> None:
         del batches
     del st, model
     torch.cuda.empty_cache()
+    return rates
 
 
 def held_out_batches(pts) -> list[dict]:
@@ -1546,17 +1571,398 @@ def train_commands() -> None:
         f'{time.perf_counter() - t0:.1f} s')
 
 
-def phase_train(s, pts) -> int:
+def phase_train(s, pts) -> tuple[int, dict[int, float]]:
     """12: training.  Returns K1's launches in the fine-tune's in-train
-    evaluation."""
+    evaluation and 12b's images/s by batch."""
     t0 = time.perf_counter()
     train_serving_form(s, pts)
     train_card_vs_cpu()
-    train_throughput(pts)
+    rates = train_throughput(pts)
     launches = train_finetune(pts)
     train_commands()
     log(f'train: phase {time.perf_counter() - t0:.1f} s')
+    return launches, rates
+
+
+# phase 13: the JAX round-5 recipe of runs/det_robust_r5 (QUALITY.md)
+DETECTOR_RECIPE = ('--downscale', '8', '--epochs', '16', '--steps-per-epoch',
+                   '50', '--batch-size', '16', '--augment')
+# the JAX package's round-5 detector on a TPU v5e (QUALITY.md): quality
+# figures of the reference, printed beside the port's, not speed targets
+JAX_R5_IOU, JAX_R5_PERTURBED_IOU = 0.812, 0.807
+DETECT_RATE_MIN = 0.95          # the JAX round-4 gate (QUALITY.md)
+
+
+def two_stage_rate(det, model, frames, pts, downscale: int, iters: int = 3
+                   ) -> float:
+    """Images/s of detect_and_infer on ``frames`` (after a warm-up)."""
+    from esa_pose_estimation_tpu_torch import pipeline
+    rgen = torch.Generator(device=DEVICE).manual_seed(SEED + 31)
+
+    def call():
+        return pipeline.detect_and_infer(det, model, frames, pts, rgen,
+                                         detector_downscale=downscale)
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        call()
+    torch.cuda.synchronize()
+    return frames.shape[0] * iters / (time.perf_counter() - t0)
+
+
+def phase_detector(model, pts) -> int:
+    """13: cli.train_detector at the JAX round-5 recipe on the card (no
+    fallback: the run, its checkpoint and its gates must all hold), then
+    cli.eval_synthetic --detector-workdir on the 128 held-out frames, and
+    detect_and_infer at batch 256 with the trained weights and with seeded
+    ones, in turns.  Returns K1's launches in that eval."""
+    import tempfile
+
+    from esa_pose_estimation_tpu_torch.cli import eval_synthetic
+    from esa_pose_estimation_tpu_torch.cli import train_detector
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.models.detector import TinyDetector
+    from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
+        peak_decode,
+    )
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        wd = f'{root}/det'
+        res = train_detector.main(['--workdir', wd, *DETECTOR_RECIPE])
+        t_train = time.perf_counter() - t0
+        with open(f'{wd}/events.jsonl') as f:
+            epochs = [json.loads(line) for line in f]
+        steps = int(DETECTOR_RECIPE[DETECTOR_RECIPE.index(
+            '--steps-per-epoch') + 1])
+        train_s = [e['train_seconds'] for e in epochs]
+        epoch_s = statistics.median([e['seconds'] for e in epochs])
+        losses = [e['loss'] for e in epochs]
+        log(f'detector training ({" ".join(DETECTOR_RECIPE)}; width 32, '
+            f'stride 16, f32, TF32 off): {len(epochs)} epochs in '
+            f'{t_train:.1f} s; seconds per epoch {epoch_s:.2f} '
+            f'(median; training alone {statistics.median(train_s):.2f}), '
+            f'{1e3 * statistics.median(train_s) / steps:.1f} ms per step '
+            f'with the frames rendered and perturbed on the card; loss '
+            f'first {losses[0]:.4f} last {losses[-1]:.4f}')
+        log(f'detector held-out (last epoch, {4 * 16} frames): clean mean '
+            f'IoU {res["mean_iou"]:.4f} det@0.5 {res["detect_rate_50"]:.4f} '
+            f'det@0.75 {res["detect_rate_75"]:.4f}; perturbed mean IoU '
+            f'{res["perturbed_mean_iou"]:.4f} det@0.5 '
+            f'{res["perturbed_detect_rate_50"]:.4f} det@0.75 '
+            f'{res["perturbed_detect_rate_75"]:.4f} (the JAX package on a '
+            f'TPU v5e, a quality figure: IoU {JAX_R5_IOU} clean, '
+            f'{JAX_R5_PERTURBED_IOU} perturbed)')
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f'detector training: losses {losses}')
+        if not (res['detect_rate_50'] >= DETECT_RATE_MIN
+                and res['perturbed_detect_rate_50'] >= DETECT_RATE_MIN):
+            raise AssertionError(f'detector training: det@0.5 '
+                                 f'{res["detect_rate_50"]} clean, '
+                                 f'{res["perturbed_detect_rate_50"]} '
+                                 f'perturbed (limit {DETECT_RATE_MIN})')
+        peak_decode.launches = 0
+        rec = eval_synthetic.main(['--artifact', ARTIFACT,
+                                   '--detector-workdir', wd])
+        torch.cuda.synchronize()
+        launches = peak_decode.launches
+        log(f'two-stage eval (trained detector, box x1.1): '
+            f'{json.dumps(rec)}; K1 launches {launches}')
+        if rec['median'] is None or not rec['median'] <= 0.01 \
+                or rec['detector_fallback_frames']:
+            raise AssertionError(f'two-stage eval: median {rec["median"]} '
+                                 f'(limit 0.01), '
+                                 f'{rec["detector_fallback_frames"]} '
+                                 'full-frame fallbacks (limit 0)')
+        if launches < 1:
+            raise AssertionError('two-stage eval: K1 never launched')
+        trained, ds = eval_synthetic.load_trained_detector(wd, None, DEVICE)
+    seeded = TinyDetector(width=32, stride=16).to(
+        DEVICE, memory_format=torch.channels_last).init_weights(
+        torch.Generator(device=DEVICE).manual_seed(SEED + 9)).eval()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 30)
+    frames = torch.clamp(synthetic.make_sample(gen, pts, 256).image, 0,
+                         255).to(torch.uint8)
+    rates = {'seeded': [], 'trained': []}
+    for name in ('seeded', 'trained', 'trained', 'seeded'):
+        rates[name].append(two_stage_rate(
+            trained if name == 'trained' else seeded, model, frames, pts,
+            ds))
+    log(f'two-stage throughput batch 256 at downscale {ds}: trained '
+        f'detector {", ".join(f"{r:.1f}" for r in rates["trained"])} img/s, '
+        f'seeded detector {", ".join(f"{r:.1f}" for r in rates["seeded"])} '
+        f'img/s (in turns: seeded, trained, trained, seeded)')
+    del frames, trained, seeded
+    torch.cuda.empty_cache()
+    log(f'detector: phase {time.perf_counter() - t0:.1f} s')
     return launches
+
+
+# phase 14: the shards (records, frames per write batch) and the runs
+# (shard, batch, host crop, timed steps)
+SHARD_RAW_RECORDS, SHARD_PNG_RECORDS, SHARD_WRITE_BATCH = 512, 256, 16
+SHARD_RUNS = (('raw', 32, False, 8), ('raw', 32, True, 8),
+              ('raw', 256, False, 3), ('raw', 256, True, 3),
+              ('png', 32, False, 6), ('png', 32, True, 6))
+# host crop against the device crop, in grey levels (the JAX test's)
+HOST_CROP_ATOL = 0.05
+
+
+def shard_steps(st, path, batch, host_crop, steps):
+    """``steps`` train steps (after two untimed ones) from the shard through
+    the native loader, pinned host tensors and ``build_shard_batch``:
+    images/s, the host's mean wait on the loader per step, the
+    host-to-device copy of one batch (synchronized), peak memory and the
+    losses."""
+    from esa_pose_estimation_tpu_torch.data import pipeline as dp
+    from esa_pose_estimation_tpu_torch.data.native_loader import (
+        NativeBatchLoader,
+    )
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 40)
+    loader = NativeBatchLoader(path, batch, n_threads=4, shuffle=True,
+                               seed=SEED, crop_size=128 if host_crop
+                               else None, device=DEVICE)
+    waits, losses = [], []
+
+    def batches():
+        while True:                      # epochs, reshuffled
+            it = iter(loader)
+            while True:
+                t = time.perf_counter()
+                b = next(it, None)
+                waits.append(time.perf_counter() - t)
+                if b is None:
+                    break
+                yield b
+    stream = dp.prefetch_to_device(batches(), DEVICE, size=2)
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps + 2):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0, n_wait = time.perf_counter(), len(waits)
+        b = dp.build_shard_batch(next(stream), gen, train=True)
+        losses.append(tstate.train_step(st, b)['loss'])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    wait_ms = 1e3 * sum(waits[n_wait:]) / steps
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    host = next(iter(loader))
+    nbytes = sum(v.numel() * v.element_size() for v in host.values()
+                 if isinstance(v, torch.Tensor))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for v in host.values():
+        if isinstance(v, torch.Tensor):
+            v.to(DEVICE, non_blocking=True)
+    torch.cuda.synchronize()
+    h2d_ms = (time.perf_counter() - t1) * 1e3
+    loader.close()
+    return {'img_s': batch / dt, 'ms_step': dt * 1e3, 'wait_ms': wait_ms,
+            'h2d_ms': h2d_ms, 'h2d_mb': nbytes / 1e6, 'peak_gib': peak,
+            'losses': torch.stack(losses).cpu().tolist()}
+
+
+def check_shard_batches(path, pts) -> None:
+    """The shard's first 16 records as the loader gives them (frames, then
+    host crops) against the device route on the frames the writer
+    rendered: ``build_batch`` on the same uint8 frames, on the card."""
+    from esa_pose_estimation_tpu_torch.data import pipeline as dp
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.data.native_loader import (
+        NativeBatchLoader,
+    )
+    from esa_pose_estimation_tpu_torch.utils.seeding import generator
+    n = SHARD_WRITE_BATCH
+    s = synthetic.make_sample(generator(DEVICE, SEED, 0), pts, n)
+    frames = torch.clamp(s.image, 0, 255).to(torch.uint8)
+    draws = dp.draw_build(torch.Generator(device=DEVICE).manual_seed(SEED),
+                          n, 128, device=DEVICE)
+    want = dp.build_batch(frames, s.bbox, s.keypoints_2d, crop_size=128,
+                          draws=draws)
+    out = {}
+    for crop in (None, 128):
+        with NativeBatchLoader(path, n, shuffle=False, crop_size=crop,
+                               device=DEVICE) as loader:
+            host = next(iter(loader))
+        pinned = all(v.is_pinned() for v in host.values()
+                     if isinstance(v, torch.Tensor))
+        b = {k: (v.to(DEVICE, non_blocking=True)
+                 if isinstance(v, torch.Tensor) else v)
+             for k, v in host.items()}
+        out[crop] = (dp.build_shard_batch(b, crop_size=128, draws=draws),
+                     pinned)
+    got, pinned_f = out[None]
+    exact = all(torch.equal(got[k], want[k]) for k in want)
+    got_c, pinned_c = out[128]
+    # images are normalized: a grey level is 1 / (255 * 0.229)
+    img_err = float((got_c['image'] - want['image']).abs().max()) \
+        * 255 * 0.229
+    tgt_err = max(float((got_c[k] - want[k]).abs().max())
+                  for k in ('heatmaps', 'weights', 'keypoints_crop'))
+    log(f'shard batches vs the device route on the same {n} frames: from '
+        f'frames equal {exact}; from host crops images within '
+        f'{img_err:.4g} grey levels (limit {HOST_CROP_ATOL}), targets '
+        f'within {tgt_err:.3g}; loader tensors pinned {pinned_f and pinned_c}')
+    if not (exact and img_err <= HOST_CROP_ATOL and tgt_err <= 1e-4
+            and pinned_f and pinned_c):
+        raise AssertionError('shard batches differ from the device route')
+
+
+def phase_shards(pts, synthetic_rates: dict[int, float]) -> int:
+    """14: the native loader built from native/src/shard_loader.cpp at
+    first use; synthetic SPD1 shards of full 1920x1200 frames, raw and
+    PNG; their batches against the device route; hrnet_esa from r5 trained
+    from them at batch 32 and 256 with and without the host crop, beside
+    phase 12b's synthetic route; then cli.train --train-shard --host-crop
+    on the card (K1 in its in-train eval).  Returns K1's launches there."""
+    import tempfile
+
+    from esa_pose_estimation_tpu_torch.cli import train
+    from esa_pose_estimation_tpu_torch.data import native_loader, shards
+    from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
+        peak_decode,
+    )
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+    from esa_pose_estimation_tpu_torch.utils import config
+    t0 = time.perf_counter()
+    lib = native_loader.build_library()
+    link = ' '.join(native_loader.libpng_args())
+    log(f'shard loader: built {lib.name} from '
+        f'{native_loader.SOURCE.relative_to(ROOT)} in '
+        f'{time.perf_counter() - t0:.1f} s ({link})')
+    with tempfile.TemporaryDirectory() as root:
+        paths = {}
+        for kind, n in (('raw', SHARD_RAW_RECORDS),
+                        ('png', SHARD_PNG_RECORDS)):
+            t1 = time.perf_counter()
+            paths[kind] = f'{root}/{kind}.spd'
+            shards.write_synthetic_shard(paths[kind], n,
+                                         compressed=kind == 'png',
+                                         batch=SHARD_WRITE_BATCH, seed=SEED,
+                                         device=DEVICE)
+            log(f'shard {kind}: {n} records of 1920x1200, '
+                f'{Path(paths[kind]).stat().st_size / 1e6:.0f} MB, written '
+                f'in {time.perf_counter() - t1:.1f} s')
+        check_shard_batches(paths['raw'], pts)
+        model = r5_masters()
+        st = tstate.create_train_state(model, config.TrainConfig())
+        for kind, batch, host_crop, steps in SHARD_RUNS:
+            r = shard_steps(st, paths[kind], batch, host_crop, steps)
+            if not all(math.isfinite(v) for v in r['losses']):
+                raise AssertionError(f'shard {kind} batch {batch}: losses '
+                                     f'{r["losses"]}')
+            ref = synthetic_rates.get(batch)
+            log(f'shard train {kind} batch {batch} '
+                f'{"host crop" if host_crop else "frames"}: '
+                f'{r["img_s"]:.1f} img/s ({r["ms_step"]:.1f} ms per step; '
+                f'synthetic route of 12b in this run '
+                f'{"not measured" if ref is None else f"{ref:.1f}"} img/s); '
+                f'host waits on the loader {r["wait_ms"]:.2f} ms per step; '
+                f'host to device {r["h2d_ms"]:.2f} ms for '
+                f'{r["h2d_mb"]:.1f} MB a batch (pinned, alone); peak memory '
+                f'{r["peak_gib"]:.2f} GiB; losses all finite')
+        del st, model
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        wd = f'{root}/run'
+        peak_decode.launches = 0
+        res = train.main(['--workdir', wd, '--train-shard', paths['raw'],
+                          '--host-crop', '--epochs', '1', '--batch-size',
+                          '32', '--eval-every', '1'])
+        torch.cuda.synchronize()
+        launches = peak_decode.launches
+        with open(f'{wd}/events.jsonl') as f:
+            loss = [e for e in map(json.loads, f)
+                    if e['event'] == 'epoch'][0]['loss']
+        log(f'cli.train --train-shard raw --host-crop (hrnet_esa from its '
+            f'initialisation, 1 epoch of {SHARD_RAW_RECORDS // 32} steps, '
+            f'eval on the shard\'s first 128 frames): epoch loss {loss:.5f}, '
+            f'eval {json.dumps(res)}; K1 launches {launches}; '
+            f'{time.perf_counter() - t2:.1f} s')
+        if launches < 4 or not math.isfinite(loss):
+            raise AssertionError(f'cli.train from the shard: loss {loss}, '
+                                 f'K1 launches {launches}')
+    log(f'shards: phase {time.perf_counter() - t0:.1f} s')
+    return launches
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+def phase_group() -> None:
+    """15: a one-rank NCCL group: three f32 train steps of hrnet_tiny
+    through wrap_data_parallel and the group-aware BatchNorm against the
+    same three steps with no group, at phase 12a's tolerances; the group
+    is then destroyed."""
+    import copy
+
+    import torch.distributed as dist
+
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.models.hrnet import HRNet
+    from esa_pose_estimation_tpu_torch.parallel.mesh import (
+        wrap_data_parallel,
+    )
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+    from esa_pose_estimation_tpu_torch.utils import config
+    t0 = time.perf_counter()
+    cfg = config.TrainConfig(batch_size=8, crop_size=64)
+    lr = cfg.lr_values[0]
+    plain = HRNet(config.hrnet_tiny()).to(
+        DEVICE, memory_format=torch.channels_last).init_weights(
+        torch.Generator(device=DEVICE).manual_seed(SEED + 50))
+    grouped = copy.deepcopy(plain)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 51)
+    b = synthetic.make_batch(gen, 8, synthetic.spacecraft_points(
+        device=DEVICE, n=6), crop_size=64)
+    batch = {'image': torch.randn(b['image'].shape, generator=gen,
+                                  device=DEVICE),
+             'heatmaps': b['heatmaps'], 'weights': b['weights']}
+    st = tstate.create_train_state(plain, cfg)
+    want = [tstate.train_step(st, batch) for _ in range(3)]
+    dist.init_process_group('nccl', init_method=f'tcp://localhost:'
+                            f'{free_port()}', world_size=1, rank=0)
+    try:
+        st = tstate.create_train_state(grouped, cfg)
+        st.train_model = wrap_data_parallel(grouped)
+        got = [tstate.train_step(st, batch) for _ in range(3)]
+        torch.cuda.synchronize()
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    loss_rel = max(abs(float(g['loss']) / float(w['loss']) - 1.0)
+                   for g, w in zip(got, want))
+    gn_rel = max(abs(float(g['grad_norm']) / float(w['grad_norm']) - 1.0)
+                 for g, w in zip(got, want))
+    stat_err = param_err = 0.0
+    stats_ok = True
+    sd_p, sd_g = plain.state_dict(), grouped.state_dict()
+    for k, v in sd_p.items():
+        err = float((sd_g[k] - v).abs().max())
+        if k.endswith(('running_mean', 'running_var')):
+            stat_err = max(stat_err, err)
+            stats_ok &= torch.allclose(sd_g[k], v, rtol=TRAIN_STAT_TOL,
+                                       atol=TRAIN_STAT_TOL)
+        else:
+            param_err = max(param_err, err)
+    log(f'one-rank {backend} group (hrnet_tiny f32, batch 8 at 64x64, 3 '
+        f'steps through DistributedDataParallel) against no group: loss '
+        f'rel diff {loss_rel:.3g} (limit {TRAIN_LOSS_RTOL}), grad_norm rel '
+        f'diff {gn_rel:.3g} (limit {TRAIN_GNORM_RTOL}), running statistics '
+        f'max diff {stat_err:.3g} (rtol/atol {TRAIN_STAT_TOL}), parameters '
+        f'max diff {param_err:.3g} (limit 3 lr = {3 * lr:g}); group '
+        f'destroyed: {not dist.is_initialized()}; '
+        f'{time.perf_counter() - t0:.1f} s')
+    if not (loss_rel <= TRAIN_LOSS_RTOL and gn_rel <= TRAIN_GNORM_RTOL
+            and stats_ok and param_err <= 3 * lr
+            and not dist.is_initialized()):
+        raise AssertionError('one-rank group: the steps disagree with the '
+                             'steps without a group')
 
 
 def main() -> None:
@@ -1582,17 +1988,24 @@ def main() -> None:
     phase_seeded(model, pts)
     phase_commands(planted, pts)
     log(f'two-stage and commands: phase {time.perf_counter() - t11:.1f} s')
-    k1['launches_train_eval'] = phase_train(frames, pts)
+    k1['launches_train_eval'], rates = phase_train(frames, pts)
+    k1['launches_two_stage_eval'] = phase_detector(model, pts)
+    k1['launches_shard_train_eval'] = phase_shards(pts, rates)
+    phase_group()
     log(f'total: {time.perf_counter() - t_start:.1f} s')
     # graph_ms / plain_graph_ms (K1 and K2): the same calls replayed from a
     # CUDA graph, beside ms / plain_ms by eager calls as in earlier PRs;
     # launches_two_stage (K1): its launches in one detect_and_infer call;
     # launches_train_eval (K1): its launches in the in-train evaluate of
-    # phase 12c (four batches of 32 held-out frames)
+    # phase 12c (four batches of 32 held-out frames); launches_two_stage_eval
+    # (K1): in cli.eval_synthetic --detector-workdir of phase 13 (128
+    # frames); launches_shard_train_eval (K1): in the in-train evaluate of
+    # cli.train --train-shard in phase 14 (four batches of 32 frames)
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
             'graph_ms', 'plain_graph_ms', 'launches_two_stage',
-            'launches_train_eval')
+            'launches_train_eval', 'launches_two_stage_eval',
+            'launches_shard_train_eval')
     print(json.dumps({'kernels': [{k: rec[k] for k in keys if k in rec}
                                   for rec in (k1, k2, k3)]}))
     print(json.dumps({'ok': True, 'device': {

@@ -3,6 +3,7 @@
     python -m esa_pose_estimation_tpu_torch.cli.eval_synthetic \\
         [--workdir runs/esa_syn --checkpoint best_rotate | \\
          --artifact artifacts/esa_syn_r5.npz] [--perturb] [--int8] \\
+        [--detector-workdir runs/det [--detector-downscale 8]] \\
         [--device cpu]
 
 Port of the JAX package's ``cli/eval_synthetic.py``.  It scores ``--frames``
@@ -21,14 +22,23 @@ from ``--seed`` and the batch index, so the frame set is not the JAX one:
 scores compare with the JAX package's in distribution, not frame by frame.
 The weights come from the port checkpoint ``<workdir>/net_esa/<checkpoint>``
 (``cli/train.py`` writes them), or from ``--artifact`` when one is given.
-The JAX command's ``--detector-workdir`` route waits for detector training
-(ROADMAP item 11b).
+
+``--detector-workdir`` scores the two-stage chain: the boxes come from the
+trained detector of ``cli/train_detector`` (its ``net_detector/best_iou``
+checkpoint, which must exist: random detector weights would print bad
+scores with exit code 0) in place of the truth, grown by 1.1 about their
+centres, at the downscale its ``detector.json`` records
+(``--detector-downscale`` overrides it; 4 if neither says).  The stages
+are those of ``pipeline.detect_and_infer``, run one after the other so
+the record can count the frames whose box fell back to the full frame
+(``detector_fallback_frames``).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import numpy as np
 import torch
@@ -97,6 +107,13 @@ def _parser() -> argparse.ArgumentParser:
                          'then gaussian noise or motion blur, '
                          'data/augment.perturb_capture) applied to the full '
                          'frame before the crop')
+    ap.add_argument('--detector-workdir', default=None,
+                    help='score the two-stage pipeline: the boxes come '
+                         'from the detector trained in this workdir '
+                         '(cli.train_detector) instead of the truth')
+    ap.add_argument('--detector-downscale', type=int, default=None,
+                    help='average-pool factor of the detector input '
+                         '(default: the detector.json of its run, else 4)')
     ap.add_argument('--mirror-evidence', choices=('heatmap', 'cost'),
                     default='heatmap',
                     help='mirror-pose disambiguation signal: reprojected-'
@@ -132,8 +149,12 @@ def main(argv=None) -> dict:
         print(f'# loaded {args.checkpoint} (epoch {epoch})')
     points_3d = synthetic.spacecraft_points(
         device=dev, n=model.cfg.num_keypoints)
+    detector = (load_trained_detector(args.detector_workdir,
+                                      args.detector_downscale, dev)
+                if args.detector_workdir else None)
 
     all_scores, depths = [], []
+    n_fallback = 0
     pix_err_sum, pix_err_n = 0.0, 0
     n_batches = -(-args.frames // args.batch_size)
     old_int8 = layers.INT8_SERVING
@@ -148,8 +169,17 @@ def main(argv=None) -> dict:
                 frames = augment.perturb_capture(frames, augment.draw_perturb(
                     generator(dev, args.seed, i, 4242), *frames.shape,
                     device=dev))
+            boxes = s.bbox
+            if detector is not None:
+                det, ds = detector
+                boxes, det_scores = pipeline.detect_frames(
+                    det, frames, det.stride, ds, box_expand=1.1)
+                # detect_frames serves the full frame where no box
+                # scored above 0.05 (its score is then 0)
+                take = min(args.batch_size, args.frames - i * args.batch_size)
+                n_fallback += int((det_scores <= 0.05)[:take].sum())
             out = pipeline.infer_poses(
-                model, frames, s.bbox, points_3d, gen,
+                model, frames, boxes, points_3d, gen,
                 crop_size=args.crop_size, conf_threshold=0.6,
                 min_keypoints=0, n_hypotheses=args.n_hypotheses,
                 flip_tta=args.flip_tta, mirror_evidence=args.mirror_evidence)
@@ -169,8 +199,36 @@ def main(argv=None) -> dict:
     record = summarize(np.concatenate(all_scores)[:args.frames],
                        np.concatenate(depths)[:args.frames],
                        pix_err_sum, pix_err_n)
+    if detector is not None:
+        record['detector_fallback_frames'] = n_fallback
     print(json.dumps(record))
     return record
+
+
+def load_trained_detector(workdir: str, downscale: int | None, device):
+    """The ``best_iou`` detector of a ``cli.train_detector`` run in eval
+    mode on ``device``, and the downscale it serves at; a missing
+    checkpoint raises, listing the names there."""
+    from esa_pose_estimation_tpu_torch.models.detector import (
+        TinyDetector,
+        load_detector_config,
+    )
+    from esa_pose_estimation_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+    )
+    from esa_pose_estimation_tpu_torch.train.state import TrainState
+    from esa_pose_estimation_tpu_torch.utils.artifact import target_device
+
+    device = target_device(device, 'load_trained_detector')
+    cfg = load_detector_config(workdir) or {}
+    det = TinyDetector(width=cfg.get('width_ch', 32),
+                       stride=cfg.get('stride', 16)).to(
+        device=device, memory_format=torch.channels_last)
+    _, next_epoch = CheckpointManager(
+        os.path.join(workdir, 'net_detector')).restore_required(
+        'best_iou', TrainState(det))
+    print(f'# loaded detector {workdir} best_iou (epoch {next_epoch - 1})')
+    return det.eval(), downscale or cfg.get('downscale', 4)
 
 
 if __name__ == '__main__':

@@ -1,7 +1,7 @@
 """Utilization experiments on one NVIDIA H100.
 
     python -m esa_pose_estimation_tpu_torch.cli.mfu_experiments [--chain |
-        --int8 | --int8-matmul | --cluster-sweep | --repeat]
+        --int8 | --int8-matmul | --cluster-sweep | --repeat | --k2-case]
 
 Port of the JAX package's ``scripts/mfu_experiments.py``.  Every mode times
 on the card with CUDA events and reports its share of the card's bf16
@@ -40,6 +40,11 @@ CUDA device.  Modes:
   at every batch serving gives them (1, 64, 256; 1, 32, 64, 256), each
   launched many times on one input: the count of launches whose output
   is not bit-equal to the first.  Nothing is timed.
+* ``--k2-case``: two launches of the fused CBAM kernel on one input at
+  batch 64, 64x64x32 with residual (R = 5 CTAs per image), the case in
+  which two launches once differed (ROADMAP.md section 3, fault 2), and
+  whether they are bit-equal.  It is small enough to run under
+  ``compute-sanitizer --tool racecheck`` or ``--tool synccheck``.
 
 Each mode prints one JSON line per measurement and a last line with all.
 """
@@ -347,6 +352,28 @@ def repeat_experiment(cbam_batches=(1, 64, 256),
     return results
 
 
+def k2_case() -> dict:
+    """Two K2 launches at batch 64, 64x64x32 with residual."""
+    from esa_pose_estimation_tpu_torch.experimental import cbam_fuse
+    dev = _require_cuda()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, h, w, c = 64, 64, 64, 32
+    x, res = (torch.randn((b, h, w, c), generator=gen, device=dev
+                          ).to(torch.bfloat16) for _ in range(2))
+    fc1 = 0.3 * torch.randn((c, c // 16), generator=gen, device=dev)
+    fc2 = 0.3 * torch.randn((c // 16, c), generator=gen, device=dev)
+    spw = 0.2 * torch.randn((7, 7, 2), generator=gen, device=dev)
+    outs = [cbam_fuse._launch(x, fc1, fc2, spw, res) for _ in range(2)]
+    torch.cuda.synchronize()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    result = {'k2_case': {
+        'shape': [b, h, w, c], 'residual': True,
+        'ranks': cbam_fuse.cluster_ranks(h, w, c, b, n_sm),
+        'bit_equal': torch.equal(outs[0], outs[1])}}
+    print(json.dumps(result), flush=True)
+    return result
+
+
 def flagship_experiment() -> dict:
     """The hrnet_esa batch sweep and the lane-padded variant at 256."""
     from esa_pose_estimation_tpu_torch.utils import config as cfg_mod
@@ -381,6 +408,7 @@ def main(argv=None) -> dict:
     mode.add_argument('--int8-matmul', action='store_true')
     mode.add_argument('--cluster-sweep', action='store_true')
     mode.add_argument('--repeat', action='store_true')
+    mode.add_argument('--k2-case', action='store_true')
     args = ap.parse_args(argv)
     _require_cuda()
     if args.chain:
@@ -393,6 +421,8 @@ def main(argv=None) -> dict:
         results = cluster_sweep()
     elif args.repeat:
         results = repeat_experiment()
+    elif args.k2_case:
+        results = k2_case()
     else:
         results = flagship_experiment()
     results['device'] = torch.cuda.get_device_name(0)

@@ -3,9 +3,11 @@
 
     python -m esa_pose_estimation_tpu_torch.cli.train --workdir runs/esa \\
         [--train-pkl data/train.pkl --test-pkl data/test.pkl \\
-         --image-root /data/speed/images/train/] \\
+         --image-root /data/speed/images/train/ | \\
+         --train-shard data/train.spd [--loader-threads 4] [--host-crop]] \\
         [--epochs 100] [--batch-size 32] [--synthetic-size 2048] \\
-        [--augment-geom] [--augment-photo] [--tiny] [--device cpu]
+        [--augment-geom] [--augment-photo] [--tiny] [--device cpu] \\
+        [--coordinator host:port --num-processes N --process-id i]
 
 HRNet-W32+CBAM (``--tiny``: ``hrnet_tiny``) in bf16 over f32 master
 weights, Adam with the stepped schedule, the weighted HeatmapWing loss, a
@@ -14,21 +16,36 @@ periodic SPEED-score eval (``cli/evaluate.evaluate`` over an
 checkpoints (``train/checkpoint.py``), TSV/JSONL logs, optional
 TensorBoard scalars and TCP telemetry.  A run resumes from ``last``.
 
-Data: ``--train-pkl``/``--image-root`` read the SPEED pickle layout
-(data_load4.py:90-101) through ``data/speed.BatchLoader`` with two batches
-prefetched to the card; without them the synthetic dataset
-(``data/synthetic.make_batch``) is generated on the device.
+Data: ``--train-shard`` streams an SPD1 shard (``data/shards.py``)
+through the C++ loader (``data/native_loader.py``, built at first use) in
+page-locked host tensors, the production input route; ``--host-crop``
+crops on the loader's threads and ships 128x128 crops in place of
+1920x1200 frames.  ``--train-pkl``/``--image-root`` read the SPEED pickle
+layout (data_load4.py:90-101) through ``data/speed.BatchLoader``.  Both
+keep two batches' copies to the card in flight.  Without either, the
+synthetic dataset (``data/synthetic.make_batch``) is generated on the
+device.  ``--test-pkl`` gives the held-out eval split of either route; a
+shard run without it evaluates on the shard's first four batches.
+
+Several processes, one per card: ``--coordinator host:port
+--num-processes N --process-id i`` (or ``MASTER_ADDR``/``MASTER_PORT``,
+``WORLD_SIZE``, ``RANK``) join one NCCL group (gloo with ``--device
+cpu``).  ``--batch-size`` is the global batch and must divide over the
+processes; each process streams its own slice of the records at its
+share of the batch, DistributedDataParallel averages the gradients, and
+the BatchNorm statistics are taken over the global batch
+(``models/layers.BatchNorm``).  Process i > 0 writes its logs and
+checkpoints under ``<workdir>/proc{i}``: the primary's are the run's.
 
 Runs on the card (``--device cuda``, the default; without one it raises)
-or on the CPU with ``--device cpu``.  Not offered here: ``--train-shard``
-and ``--host-crop`` (the native SPD1 loader, ROADMAP item 12), several
-processes (DDP with a synchronised BatchNorm comes later), and eval image
-panels (``obs/visual.py``, ROADMAP item 15).
+or on the CPU with ``--device cpu``.  Not offered here: eval image panels
+(``--no-panels``; ``obs/visual.py``, ROADMAP item 15).
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import time
 
@@ -47,6 +64,8 @@ from esa_pose_estimation_tpu_torch.obs import (
     TcpPusher,
     TsvLogger,
 )
+from esa_pose_estimation_tpu_torch.parallel import distributed as dist
+from esa_pose_estimation_tpu_torch.parallel.mesh import wrap_data_parallel
 from esa_pose_estimation_tpu_torch.train import checkpoint as checkpoint_mod
 from esa_pose_estimation_tpu_torch.train import state as state_mod
 from esa_pose_estimation_tpu_torch.train.checkpoint import CheckpointManager
@@ -79,8 +98,34 @@ def _synthetic_eval_batches(device, batch_size, points_3d, crop_size):
                                    crop_size=crop_size, with_frames=True)
 
 
+def _shard_eval_batches(args, dev):
+    """The held-out frames of a shard run without ``--test-pkl``: the
+    shard's first four batches, in order."""
+    from esa_pose_estimation_tpu_torch.data.native_loader import (
+        NativeBatchLoader,
+    )
+    with NativeBatchLoader(args.train_shard, args.batch_size,
+                           n_threads=args.loader_threads, shuffle=False,
+                           device=dev) as loader:
+        yield from itertools.islice(iter(loader), 4)
+
+
+def _check_batch(args) -> None:
+    n = dist.requested_processes(args.num_processes)
+    if args.batch_size % n:
+        raise ValueError(f'--batch-size {args.batch_size} (global) must '
+                         f'divide over {n} processes')
+
+
 def train(args) -> dict:
     dev = target_device(args.device, 'cli.train')
+    _check_batch(args)
+    dist.initialize(args.coordinator, args.num_processes, args.process_id,
+                    device=dev)
+    if dev.type == 'cuda':
+        dev = torch.device('cuda', torch.cuda.current_device())
+    n_proc, rank = dist.world_size(), dist.rank()
+    proc_batch = args.batch_size // n_proc
     cfg = cfg_mod.TrainConfig(
         batch_size=args.batch_size, crop_size=args.crop_size,
         num_epochs=args.epochs,
@@ -88,7 +133,9 @@ def train(args) -> dict:
         **({'eval_every': args.eval_every} if args.eval_every else {}),
         **({'eval_after': args.eval_after}
            if args.eval_after is not None else {}))
-    workdir = args.workdir
+    # the primary's logs and checkpoints are the run's
+    workdir = (os.path.join(args.workdir, f'proc{rank}') if rank
+               else args.workdir)
     os.makedirs(workdir, exist_ok=True)
 
     model_cfg = cfg_mod.hrnet_tiny() if args.tiny else cfg_mod.hrnet_esa()
@@ -101,8 +148,31 @@ def train(args) -> dict:
                  else 0.5 if args.mixed else 0.449)
 
     # data ------------------------------------------------------------------
+    use_shard = args.train_shard is not None
     use_real = args.train_pkl is not None
-    if use_real:
+    test_records = None
+    if use_shard:
+        from esa_pose_estimation_tpu_torch.data.native_loader import (
+            NativeBatchLoader,
+        )
+        shard_loader = NativeBatchLoader(
+            args.train_shard, proc_batch, n_threads=args.loader_threads,
+            shuffle=args.shuffle, seed=cfg.seed,
+            crop_size=cfg.crop_size if args.host_crop else None,
+            process_id=rank, process_count=n_proc, device=dev)
+        if shard_loader.meta.n_kp != model_cfg.num_keypoints:
+            shard_loader.close()
+            raise ValueError(
+                f'the shard has {shard_loader.meta.n_kp} keypoints but the '
+                f'model outputs {model_cfg.num_keypoints}')
+        points_3d = synthetic.spacecraft_points(
+            device=dev, n=model_cfg.num_keypoints)
+        steps_per_epoch = max(shard_loader.meta.n_records // cfg.batch_size,
+                              1)
+        if args.test_pkl:
+            test_records = speed_data.records_from_pickle(args.test_pkl,
+                                                          args.image_root)
+    elif use_real:
         # --mixed: data_load5 semantics, one pickle of synthetic-train and
         # real_test records routed by filename length, normalized at 0.5
         from_pkl = (speed_data.records_from_pickle_mixed if args.mixed
@@ -113,6 +183,8 @@ def train(args) -> dict:
                         if args.test_pkl else train_records[:64])
         points_3d = torch.as_tensor(train_records[0].keypoints_3d,
                                     device=dev)
+        # process i trains on its slice at its share of the batch
+        train_records = dist.local_slice(train_records)
     else:
         points_3d = synthetic.spacecraft_points(
             device=dev, n=model_cfg.num_keypoints)
@@ -122,6 +194,8 @@ def train(args) -> dict:
     st = state_mod.create_train_state(model, cfg, steps_per_epoch)
     ckpt = CheckpointManager(os.path.join(workdir, f'net_{CLASS_NAME}'))
     st, begin_epoch = ckpt.restore(checkpoint_mod.LAST, st)
+    if n_proc > 1:
+        st.train_model = wrap_data_parallel(model)
     logger = TsvLogger(os.path.join(workdir, f'log_{CLASS_NAME}.txt'),
                        resume=True)
     logger.set_names(['Epoch', 'LR', 'Train Loss'])
@@ -138,9 +212,19 @@ def train(args) -> dict:
         for epoch in range(begin_epoch, cfg.num_epochs):
             t0 = time.time()
             losses = AverageMeter()
-            gen = generator(dev, 1234, epoch)
-            if use_real:
-                loader = speed_data.BatchLoader(train_records, cfg.batch_size,
+            # each process draws its own augmentations (one process: the
+            # stream of a single-card run)
+            gen = generator(dev, 1234, epoch, *([rank] if n_proc > 1 else []))
+            if use_shard:
+                batches = (
+                    data_pipeline.build_shard_batch(
+                        b, gen, crop_size=cfg.crop_size, train=True,
+                        norm_mean=norm_mean, augment_geom=args.augment_geom,
+                        augment_photo=args.augment_photo)
+                    for b in data_pipeline.prefetch_to_device(
+                        iter(shard_loader), dev, size=2))
+            elif use_real:
+                loader = speed_data.BatchLoader(train_records, proc_batch,
                                                 shuffle=args.shuffle,
                                                 seed=epoch)
                 batches = (
@@ -153,7 +237,7 @@ def train(args) -> dict:
                                                               dev, size=2))
             else:
                 batches = (
-                    synthetic.make_batch(gen, cfg.batch_size, points_3d,
+                    synthetic.make_batch(gen, proc_batch, points_3d,
                                          crop_size=cfg.crop_size,
                                          augment_geom=args.augment_geom,
                                          augment_photo=args.augment_photo)
@@ -190,11 +274,15 @@ def train(args) -> dict:
                     or epoch % cfg.eval_every == cfg.eval_every - 1):
                 continue
             if eval_cache is None:
-                src = (speed_data.BatchLoader(
-                    test_records, min(cfg.batch_size, len(test_records)),
-                    shuffle=False) if use_real else
-                    _synthetic_eval_batches(dev, cfg.batch_size, points_3d,
-                                            cfg.crop_size))
+                if test_records is not None:
+                    src = speed_data.BatchLoader(
+                        test_records, min(cfg.batch_size, len(test_records)),
+                        shuffle=False)
+                elif use_shard:
+                    src = _shard_eval_batches(args, dev)
+                else:
+                    src = _synthetic_eval_batches(dev, cfg.batch_size,
+                                                  points_3d, cfg.crop_size)
                 eval_cache = EvalCache(model, src, points_3d, cfg.crop_size,
                                        norm_mean=norm_mean)
                 events.log('eval_cache', frames=eval_cache.n_frames,
@@ -218,6 +306,8 @@ def train(args) -> dict:
             print(f"eval epoch {epoch + 1}: speed={result['speed']:.5f} "
                   f"(t={result['score_t']:.5f}, r={result['score_r']:.5f})")
     finally:
+        if use_shard:
+            shard_loader.close()
         logger.close()
         events.close()
         if tb:
@@ -230,15 +320,20 @@ def train(args) -> dict:
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description=__doc__.split('\n\n')[0],
-        epilog='Not offered yet: --train-shard, --loader-threads and '
-               '--host-crop (the native SPD1 loader, ROADMAP item 12); '
-               '--coordinator, --num-processes and --process-id (several '
-               'processes: DDP with a synchronised BatchNorm, a later '
-               'slice); --no-panels (eval panels wait for obs/visual.py, '
-               'ROADMAP item 15).')
+        epilog='Not offered yet: --no-panels (eval panels wait for '
+               'obs/visual.py, ROADMAP item 15).')
     ap.add_argument('--workdir', default='runs/esa')
     ap.add_argument('--train-pkl', default=None)
     ap.add_argument('--test-pkl', default=None)
+    ap.add_argument('--train-shard', default=None,
+                    help='SPD1 shard read through the native C++ loader '
+                         '(data/shards.py layout; the 3D model points are '
+                         'the synthetic spacecraft_points)')
+    ap.add_argument('--loader-threads', type=int, default=4)
+    ap.add_argument('--host-crop', action='store_true',
+                    help='with --train-shard: crop and resize on the '
+                         "loader's threads and copy 65 KB crops to the card "
+                         'in place of 2.3 MB frames')
     ap.add_argument('--image-root', default='')
     ap.add_argument('--mixed', action='store_true',
                     help='data_load5 semantics: --train-pkl mixes synthetic '
@@ -286,23 +381,44 @@ def _parser() -> argparse.ArgumentParser:
                     help='restart and resume from the last checkpoint on '
                          'failure (the reference wraps train() in '
                          'try/except, main.py:440-443)')
+    ap.add_argument('--coordinator', default=None,
+                    help='several processes: host:port where process 0 '
+                         'listens (or MASTER_ADDR and MASTER_PORT)')
+    ap.add_argument('--num-processes', type=int, default=None,
+                    help='several processes: how many (or WORLD_SIZE)')
+    ap.add_argument('--process-id', type=int, default=None,
+                    help="several processes: this one's index (or RANK)")
     ap.add_argument('--device', default='cuda',
-                    help="where to run: 'cuda' (default) or 'cpu'")
+                    help="where to run: 'cuda' (default; without a card it "
+                         "raises) or 'cpu'")
     return ap
 
 
 def main(argv=None) -> dict:
     args = _parser().parse_args(argv)
+    dev = target_device(args.device, 'cli.train')
+    _check_batch(args)
+    joined = dist.initialize(args.coordinator, args.num_processes,
+                             args.process_id, device=dev)
     attempt = 0
-    while True:
-        try:
-            return train(args)
-        except Exception as e:  # noqa: BLE001 — the retry boundary
-            attempt += 1
-            if attempt > args.max_retries:
-                raise
-            print(f'train attempt {attempt} failed ({e!r}); resuming from '
-                  f'the last checkpoint')
+    try:
+        while True:
+            try:
+                result = train(args)
+                break
+            except Exception as e:  # noqa: BLE001 — the retry boundary
+                attempt += 1
+                if attempt > args.max_retries:
+                    raise
+                print(f'train attempt {attempt} failed ({e!r}); resuming '
+                      f'from the last checkpoint')
+        # the primary hosts the rendezvous: no process leaves before all
+        # are done
+        dist.barrier()
+        return result
+    finally:
+        if joined:
+            dist.shutdown()
 
 
 if __name__ == '__main__':

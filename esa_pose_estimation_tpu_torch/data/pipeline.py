@@ -6,7 +6,9 @@ square crop x1.05 -> resize -> keypoints to crop space -> Gaussian heatmap +
 weight targets -> color jitter (train) -> normalize, on the device for the
 whole batch.  Random draws come from ``draw_build`` (or are injected as
 ``draws``), as in ``data/augment.py``.  :func:`prefetch_to_device` keeps
-host batches' copies to the card in flight ahead of the consumer.
+host batches' copies to the card in flight ahead of the consumer;
+:func:`build_shard_batch` turns a native-loader batch
+(``data/native_loader.py``), frames or host crops, into a training batch.
 """
 
 from __future__ import annotations
@@ -148,20 +150,42 @@ def build_batch_from_crops(crops: torch.Tensor, rates: torch.Tensor,
                     norm_mean, norm_std, augment_geom, augment_photo, draws)
 
 
+def build_shard_batch(b: dict[str, Any],
+                      generator: torch.Generator | None = None,
+                      crop_size: int = 128, train: bool = True,
+                      norm_mean: float = 0.449, augment_geom: bool = False,
+                      augment_photo: bool = False, draws: dict | None = None
+                      ) -> dict[str, torch.Tensor]:
+    """A native-loader batch already on the device -> the model-ready batch:
+    :func:`build_batch_from_crops` when the loader cropped on the host
+    ('crop', 'rate', 'origin'), else :func:`build_batch` on its uint8
+    frames."""
+    kw = dict(train=train, norm_mean=norm_mean, augment_geom=augment_geom,
+              augment_photo=augment_photo, draws=draws)
+    if 'crop' in b:
+        return build_batch_from_crops(b['crop'], b['rate'], b['origin'],
+                                      b['keypoints_2d'], generator, **kw)
+    return build_batch(b['frame'], b['bbox'], b['keypoints_2d'], generator,
+                       crop_size=crop_size, **kw)
+
+
 def prefetch_to_device(batches: Iterable[dict[str, Any]], device,
                        size: int = 2) -> Iterator[dict[str, Any]]:
     """Keep ``size`` batches' host-to-device copies in flight ahead of the
-    consumer.  Each numpy entry goes through page-locked memory with a
-    non-blocking copy (``data.speed.to_device``), so batch j+1's copies
-    overlap the device's work on batch j, the role of DataLoader
-    prefetching and ``.cuda(non_blocking=True)`` in the reference
-    (main.py:273).  Other entries (the 'name' list) pass through."""
+    consumer.  Each numpy entry goes through page-locked memory, and each
+    CPU tensor (the native loader's are page-locked already) is copied
+    as it is, without blocking the host (``data.speed.to_device``), so
+    batch j+1's copies overlap the device's work on batch j, the role of
+    DataLoader prefetching and ``.cuda(non_blocking=True)`` in the
+    reference (main.py:273).  Other entries (the 'name' list) pass
+    through."""
     buf: collections.deque = collections.deque()
     it = iter(batches)
 
     def stage(b: dict[str, Any]) -> dict[str, Any]:
-        return {k: (to_device(v, device) if isinstance(v, np.ndarray)
-                    else v) for k, v in b.items()}
+        return {k: (to_device(v, device)
+                    if isinstance(v, (np.ndarray, torch.Tensor)) else v)
+                for k, v in b.items()}
 
     for b in it:
         buf.append(stage(b))

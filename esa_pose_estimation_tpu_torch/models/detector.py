@@ -3,16 +3,20 @@
 Torch port of the JAX package's ``models/detector.py``: a strided conv
 backbone to stride 8, 16 or 32, an objectness heatmap head and a box head
 (center offset + log size), decoded CenterNet-style with a 3x3 max-pool
-peak NMS and the batched box NMS of ``ops/nms.py``.  It fills the role of
-the reference's offline YOLOv5s stage (simple_detect.py:5-19), in the
-serving graph: detect -> crop -> keypoint (``pipeline.detect_and_infer``).
+peak NMS and the batched box NMS of ``ops/nms.py``; trained with
+:func:`detection_loss` on :func:`detection_targets`
+(``cli/train_detector.py``).  It fills the role of the reference's offline
+YOLOv5s stage (simple_detect.py:5-19), in the serving graph: detect ->
+crop -> keypoint (``pipeline.detect_and_infer``).
 
 Submodule names follow the Flax auto-numbering of the JAX model
 (``ConvBN_0`` ... ``ConvBN_{2n}``, ``heatmap_head``, ``offset_head``,
 ``size_head``), so ``utils/artifact.from_jax_variables`` maps a JAX
-variable tree onto it leaf by leaf.  Inference only, in float32 as the
-JAX package's consumers build it; ``detection_loss`` waits for the port
-of training.
+variable tree onto it leaf by leaf.  It runs in float32 for training and
+serving alike, as the JAX package builds it; its BatchNorms follow Flax's
+train-mode rule (``models/layers.BatchNorm``) at momentum 0.9, faster than
+the keypoint nets' 0.99, since the detector trains briefly and must
+evaluate with converged running statistics.
 """
 
 from __future__ import annotations
@@ -47,9 +51,11 @@ class TinyDetector(nn.Module):
         for d in range(_N_DOWN[stride]):
             ch = min(width * 2 ** d, 256)
             for s in (2, 1):
-                self.add_module(f'ConvBN_{i}', ConvBN(cin, ch, 3, s))
+                self.add_module(f'ConvBN_{i}',
+                                ConvBN(cin, ch, 3, s, bn_momentum=0.9))
                 cin, i = ch, i + 1
-        self.add_module(f'ConvBN_{i}', ConvBN(cin, 256, 3, 1))
+        self.add_module(f'ConvBN_{i}', ConvBN(cin, 256, 3, 1,
+                                              bn_momentum=0.9))
         self.n_convbn = i + 1
         for name, cout in (('heatmap_head', 1), ('offset_head', 2),
                            ('size_head', 2)):
@@ -154,6 +160,30 @@ def detection_targets(bboxes: torch.Tensor, grid_hw: tuple[int, int],
                         plane(torch.log(torch.clamp(bh, min=1e-3)))], dim=-1)
     return {'heatmap': heat[..., None], 'offset': offset, 'size': size,
             'center_mask': is_center[..., None].to(torch.float32)}
+
+
+def detection_loss(outputs: dict[str, torch.Tensor],
+                   targets: dict[str, torch.Tensor]) -> torch.Tensor:
+    """Penalty-reduced focal loss on the heatmap + L1 on the offset and the
+    size at the center cell (CenterNet-style), a scalar: the JAX package's
+    ``detection_loss``."""
+    prob = torch.sigmoid(outputs['heatmap'])
+    gt = targets['heatmap']
+    pos = (gt >= 0.999).to(torch.float32)
+    neg_w = (1.0 - gt) ** 4
+    eps = 1e-6
+    pos_loss = -torch.log(prob + eps) * (1 - prob) ** 2 * pos
+    neg_loss = -torch.log(1 - prob + eps) * prob ** 2 * neg_w * (1 - pos)
+    n_pos = torch.clamp(pos.sum(), min=1.0)
+    heat_loss = (pos_loss.sum() + neg_loss.sum()) / n_pos
+
+    cm = targets['center_mask']
+    n_center = torch.clamp(cm.sum(), min=1.0)
+    reg_loss = ((outputs['offset'] - targets['offset']).abs() * cm).sum() \
+        / n_center
+    size_loss = ((outputs['size'] - targets['size']).abs() * cm).sum() \
+        / n_center
+    return heat_loss + reg_loss + 0.1 * size_loss
 
 
 def save_detector_config(workdir: str, **cfg) -> None:

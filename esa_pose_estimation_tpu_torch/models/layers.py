@@ -80,6 +80,25 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
     return out.permute(0, 3, 1, 2)
 
 
+def _group_size() -> int:
+    """The ranks of the default process group, 1 when there is none."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def _global_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel E[x] and E[x^2] of NCHW ``x`` over the batches of every
+    rank: one autograd all-reduce of the sums and the element count."""
+    from torch.distributed.nn.functional import all_reduce
+    c = x.shape[1]
+    stats = torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)),
+                       x.new_full((1,), float(x.numel() // c))])
+    stats = all_reduce(stats)
+    return stats[:c] / stats[2 * c], stats[c:2 * c] / stats[2 * c]
+
+
 class BatchNorm(nn.Module):
     """Flax's BatchNorm in f32 (eps 1e-5), op order
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.
@@ -90,6 +109,14 @@ class BatchNorm(nn.Module):
     updates ``running = momentum * running + (1 - momentum) * batch`` with
     that biased variance.  ``nn.BatchNorm2d`` stores the unbiased variance
     and counts momentum the other way, so it is not used.
+
+    Inside an initialised process group of more than one rank, training
+    mode takes the statistics over the global batch, as JAX does under
+    GSPMD: each rank's per-channel ``(sum x, sum x^2, count)`` are summed
+    over the ranks with the autograd ``all_reduce``, so the gradient flows
+    through the global statistics, and the rule above applies to them.
+    Every rank then holds the same running statistics.
+    (``nn.SyncBatchNorm`` also keeps the unbiased variance.)
     """
 
     def __init__(self, channels: int, eps: float = 1e-5,
@@ -105,9 +132,12 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.float32)
         if self.training:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean,
-                              min=0.0)
+            if _group_size() > 1:
+                mean, mean_sq = _global_moments(x)
+            else:
+                mean, mean_sq = x.mean(dim=(0, 2, 3)), (x * x).mean(
+                    dim=(0, 2, 3))
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1.0 - m) * mean)

@@ -4,14 +4,20 @@ main.py:237-424).
 
 Adam at optax's defaults (betas 0.9/0.999, eps 1e-8) with the stepped epoch
 schedule (main.py:298-299 through adjust_learning_rate :223-234), and the
-weighted HeatmapWing loss (loss.py:116-129).  One card, one process: the
-JAX package's mesh and scan steps have no counterpart here (the train loop
-keeps per-step losses on the device instead, ``cli/train.py``).
+weighted HeatmapWing loss (loss.py:116-129); the detector's cosine decay
+(:func:`cosine_schedule`).  Several processes train one model through
+``TrainState.train_model``, the ``DistributedDataParallel`` wrapper of
+``parallel/mesh.wrap_data_parallel``, whose backward averages the
+gradients over the processes.  The JAX package's mesh and scan steps have
+no counterpart here (the train loop keeps per-step losses on the device
+instead, ``cli/train.py``).
 """
 
 from __future__ import annotations
 
 from typing import Callable
+
+import math
 
 import torch
 from torch import nn
@@ -55,16 +61,38 @@ def lr_schedule(cfg: TrainConfig, steps_per_epoch: int
     return schedule
 
 
+def cosine_schedule(lr: float, total_steps: int, alpha: float = 0.01
+                    ) -> Callable[[int], float]:
+    """``optax.cosine_decay_schedule(lr, total_steps, alpha)``: from ``lr``
+    down to ``alpha * lr`` along a half cosine over ``total_steps``, then
+    flat; the constant ``lr`` when ``total_steps`` is 0."""
+    if total_steps <= 0:
+        return lambda step: lr
+
+    def schedule(step: int) -> float:
+        frac = min(step, total_steps) / total_steps
+        return lr * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * frac))
+                     + alpha)
+
+    return schedule
+
+
 class TrainState:
     """The model, its Adam optimizer, the schedule and the step count (the
     number of optimizer updates so far, optax's ``count``).  An evaluation
-    holds the model alone (``optimizer=None``)."""
+    holds the model alone (``optimizer=None``).
+
+    ``train_model`` is what a train step runs forward: the model itself, or
+    its ``DistributedDataParallel`` wrapper when several processes train
+    it (``parallel/mesh.wrap_data_parallel``).  Checkpoints hold ``model``,
+    so their names do not depend on the wrapper."""
 
     def __init__(self, model: nn.Module,
                  optimizer: torch.optim.Optimizer | None = None,
                  schedule: Callable[[int], float] | None = None,
                  step: int = 0):
         self.model = model
+        self.train_model: nn.Module = model
         self.optimizer = optimizer
         self.schedule = schedule
         self.step = step
@@ -91,12 +119,25 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor],
     (B, H, W, K), 'weights': (B, H, W, K)}: a train-mode forward (batch
     statistics; the BatchNorm running statistics update), the loss, its
     gradients, Adam at the schedule's rate for this step.  Returns the
-    loss and the gradients' global norm as device tensors: no host sync."""
-    model, opt = state.model, state.optimizer
+    loss and the gradients' global norm as device tensors: no host sync.
+    Under several processes the loss is this process's and the norm is
+    that of the gradients averaged over the processes."""
+    return optimize(state, lambda model: weighted_heatmap_loss(
+        model(batch['image']), batch['heatmaps'], batch['weights'],
+        W=loss_w))
+
+
+def optimize(state: TrainState,
+             loss_fn: Callable[[nn.Module], torch.Tensor]
+             ) -> dict[str, torch.Tensor]:
+    """One Adam step on ``loss_fn(state.train_model)``, a train-mode
+    forward and its scalar loss: the backward (``DistributedDataParallel``
+    averages the gradients over the processes inside it), the gradients'
+    global norm, the update at the schedule's rate for this step.  Returns
+    the loss and the norm as device tensors."""
+    model, opt = state.train_model, state.optimizer
     model.train()
-    out = model(batch['image'])
-    loss = weighted_heatmap_loss(out, batch['heatmaps'], batch['weights'],
-                                 W=loss_w)
+    loss = loss_fn(model)
     opt.zero_grad(set_to_none=True)
     loss.backward()
     grad_norm = global_norm([p.grad for p in model.parameters()

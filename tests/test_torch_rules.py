@@ -40,7 +40,10 @@ def test_port_imports_no_jax():
              for f in files[:-1]}
     assert {'train/loss.py', 'train/state.py', 'train/checkpoint.py',
             'obs/logger.py', 'obs/tbevents.py', 'cli/train.py',
-            'data/augment.py', 'data/pipeline.py', 'ops/heatmap.py'} <= names
+            'data/augment.py', 'data/pipeline.py', 'ops/heatmap.py',
+            'cli/train_detector.py', 'data/shards.py',
+            'data/native_loader.py', 'parallel/distributed.py',
+            'parallel/mesh.py'} <= names
     bad = {str(f.relative_to(ROOT)): sorted(m for m in _imported_modules(f)
                                             if _forbidden(m))
            for f in files}
@@ -81,15 +84,20 @@ def _write_split(root: Path, frames, boxes) -> str:
 
 def test_cpu_entry_points_never_touch_cuda(monkeypatch, tmp_path):
     """infer_poses with every serving lever on, detect_and_infer with a
-    seeded detector, and the eval, evaluate and submit commands, on CPU
-    tensors: no CUDA call and no kernel build."""
+    seeded detector, the eval, evaluate and submit commands, detector
+    training and the two-stage eval on its output, and keypoint training
+    from an SPD1 shard with and without the host crop, on CPU tensors: no
+    CUDA call and no kernel build."""
     from esa_pose_estimation_tpu_torch import _build
     from esa_pose_estimation_tpu_torch import pipeline
     from esa_pose_estimation_tpu_torch.cli import (
         eval_synthetic,
         evaluate,
         submit,
+        train,
+        train_detector,
     )
+    from esa_pose_estimation_tpu_torch.data import shards
     from esa_pose_estimation_tpu_torch.data import synthetic as tsyn
     from esa_pose_estimation_tpu_torch.models import hrnet, layers
     from esa_pose_estimation_tpu_torch.models.detector import TinyDetector
@@ -143,6 +151,26 @@ def test_cpu_entry_points_never_touch_cuda(monkeypatch, tmp_path):
     assert 0 <= res['nonfinite'] <= 2 and 'speed' in res
     path = submit.main(common + ['--suffix', 'cpu'])
     assert len(open(path).read().strip().split('\n')) == 2
+    det_wd = str(tmp_path / 'det')
+    train_detector.main(['--workdir', det_wd, '--device', 'cpu', '--epochs',
+                         '1', '--steps-per-epoch', '2', '--batch-size', '2',
+                         '--height', '96', '--width', '160', '--downscale',
+                         '2', '--width-ch', '8', '--eval-batches', '1',
+                         '--augment'])
+    rec = eval_synthetic.main(['--artifact', 'artifacts/esa_syn_r5.npz',
+                               '--device', 'cpu', '--frames', '2',
+                               '--batch-size', '2', '--n-hypotheses', '8',
+                               '--detector-workdir', det_wd])
+    assert rec['frames'] + rec['nonfinite_frames'] == 2
+    shard = str(tmp_path / 'train.spd')
+    shards.write_synthetic_shard(shard, 8, height=240, width=384, n_kp=6,
+                                 batch=4, device='cpu')
+    for crop in ([], ['--host-crop']):
+        res = train.main(['--workdir', str(tmp_path / f'shard{len(crop)}'),
+                          '--tiny', '--epochs', '1', '--batch-size', '4',
+                          '--crop-size', '32', '--train-shard', shard,
+                          '--eval-every', '1', '--device', 'cpu'] + crop)
+        assert 'speed' in res
 
 
 def test_cpu_training_never_touches_cuda(monkeypatch, tmp_path):
@@ -184,12 +212,14 @@ def test_commands_ask_for_the_card_by_default(monkeypatch, tmp_path):
         evaluate,
         submit,
         train,
+        train_detector,
     )
     from esa_pose_estimation_tpu_torch.utils import artifact
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     art = ['--artifact', 'artifacts/esa_syn_r5.npz']
     for main, argv in (
             (train.main, ['--workdir', str(tmp_path / 'r'), '--tiny']),
+            (train_detector.main, ['--workdir', str(tmp_path / 'd')]),
             (eval_synthetic.main, art),
             (evaluate.main, art + ['--test-pkl', 'none.pkl']),
             (submit.main, art + ['--test-pkl', 'none.pkl']),
@@ -198,3 +228,39 @@ def test_commands_ask_for_the_card_by_default(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match='cuda requested'):
             main(argv)
     assert not (tmp_path / 'r' / 'net_esa').exists()
+    assert not (tmp_path / 'd').exists()
+
+
+def test_native_loader_builds_only_the_checkout_source(monkeypatch,
+                                                      tmp_path):
+    """The loader's build compiles native/src/shard_loader.cpp of this
+    checkout, and no other source, against the libpng headers kept in the
+    package, into a temporary name that is then renamed into the build
+    directory."""
+    import subprocess
+    import types
+
+    from esa_pose_estimation_tpu_torch.data import native_loader
+    calls = []
+
+    def fake_run(cmd, **kw):
+        calls.append(cmd)
+        Path(cmd[cmd.index('-o') + 1]).write_bytes(b'')
+        return types.SimpleNamespace(returncode=0, stderr='')
+
+    monkeypatch.setattr(native_loader, 'BUILD_DIR', tmp_path / 'build')
+    monkeypatch.setattr(subprocess, 'run', fake_run)
+    lib = native_loader.build_library()
+    assert len(calls) == 1
+    cmd = calls[0]
+    assert cmd[0] == 'g++'
+    sources = [a for a in cmd if a.endswith(('.cpp', '.cc', '.c', '.cu'))]
+    assert sources == [str(ROOT / 'native' / 'src' / 'shard_loader.cpp')]
+    includes = [a[2:] for a in cmd if a.startswith('-I')]
+    assert includes == [str(ROOT / 'esa_pose_estimation_tpu_torch' /
+                            'third_party' / 'libpng')]
+    assert Path(includes[0], 'png.h').is_file()
+    out = Path(cmd[cmd.index('-o') + 1])
+    assert out.parent == lib.parent == tmp_path / 'build'
+    assert out != lib and lib.exists() and not out.exists()
+    assert native_loader.build_library() == lib and len(calls) == 1
