@@ -14,7 +14,9 @@ ground truth, and times the path.  Phases:
   3. K1          peak decode vs its plain version on (B, 128, 128, 30)
                  Gaussian, plateau and all-zero maps at every batch the
                  main path serves (1, 32, 64, 256), noise at 64, and an
-                 odd shape; timed at batch 64 and 256
+                 odd shape; timed at batch 64 and 256; the same checks
+                 and times at the LINEMOD eval's (16, 128, 128, 9) and
+                 (16, 128, 128, 32)
   4. K2          fused CBAM vs its plain version, the five hrnet_esa map
                  shapes at batch 1, 64 and 256, with and without
                  residual, and three ragged shapes; two launches must be
@@ -86,6 +88,20 @@ ground truth, and times the path.  Phases:
                  (wrap_data_parallel, the group-aware BatchNorm) against
                  the same steps with no group, at 12a's tolerances; the
                  group is destroyed after
+ 16. linemod     the LINEMOD/PVNet family at crop 128, 9 keypoints, batch
+                 16: (a) ideal targets of rendered poses through heatmaps
+                 -> K1 -> RANSAC-EPnP and through the vertex field ->
+                 voting -> distribution -> uncertainty PnP score 1.0 on
+                 2D projection and ADD; (b) the rasterizer on the card
+                 against the CPU (masks equal off triangle edges, depth
+                 1e-5 relative); (c) cli.train_linemod in both modes, 2
+                 epochs of 50 steps, 4 eval batches: finite, falling
+                 losses, ms per step, images/s, peak memory, K1 launches
+                 in the heatmap eval; (d) the data2/ layout written here,
+                 one epoch with --augment and the occlusion eval in both
+                 modes; (e) ransac_voting timed at (16, 128, 128), 128
+                 hypotheses, K = 32 and 9 (keypoints within 0.01 px,
+                 launches, idle share)
 
 Kernel and plain times (``ms``, ``plain_ms``) are means of eager calls
 between CUDA events, host cost included, as in earlier PRs; K1 and K2 are
@@ -97,7 +113,7 @@ the last is a JSON record of each kernel (launches on its main path: the
 serving call for K1 and K2, the branch-chain experiment for K3; for K1
 also its launches in one detect_and_infer call, in phase 12c's
 in-train evaluate, in phase 13's two-stage eval and in phase 14's
-shard-fed in-train evaluate; error
+shard-fed in-train evaluate, and in phase 16's LINEMOD evals; error
 against its plain version, times, bound); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -205,6 +221,9 @@ def plateau_maps(gen: torch.Generator, b: int, s: int, k: int
 # (phases 5, 9 and 11a); K1 and K2 choose their cluster size from the
 # batch, so each is checked
 K1_BATCHES = (1, 32, 64, 256)
+# the keypoint counts of the LINEMOD heatmap eval at batch 16: the
+# command's default 9, and the 32 of QUALITY.md's run
+K1_LINEMOD_K = (9, 32)
 
 
 def check_k1(label: str, hm: torch.Tensor, first: torch.Tensor | None
@@ -294,6 +313,37 @@ def phase_k1() -> dict:
                        'bound_by': b_by}
             del bufs
         del hm
+    # the LINEMOD heatmap eval's maps (phase 16): batch 16, K = 9 (the
+    # command's default: 4-wide loads of 288 threads) and K = 32
+    for k_lm in K1_LINEMOD_K:
+        shape = (16, s, s, k_lm)
+        cfg = cluster_config(*shape)
+        if launch_shape(*shape, n_sm)[::2] != (cfg['ranks'], cfg['vec']):
+            raise AssertionError(f'K1 {shape}: launch_shape differs from '
+                                 f'the kernel {cfg}')
+        plateau, first = plateau_maps(gen, 16, s, k_lm)
+        cases = {'gaussian': (gaussian_maps(gen, 16, s, k_lm), None),
+                 'plateau': (plateau, first),
+                 'all-zero': (torch.zeros(shape, device=DEVICE),
+                              torch.zeros((16, k_lm), dtype=torch.int32,
+                                          device=DEVICE))}
+        for name, (hm, want) in cases.items():
+            max_err = max(max_err, check_k1(f'linemod {name}', hm, want))
+        hm = cases['gaussian'][0]
+        bufs = [(hm.clone(),) for _ in range(copies_for(hm.numel() * 4))]
+
+        def plain(x):
+            return peak.decode_heatmaps(x.permute(0, 3, 1, 2))
+        ms, plain_ms = paired_ms(peak_decode, plain, bufs)
+        g_ms, g_plain_ms = paired_ms(peak_decode, plain, bufs, graph=True)
+        b_ms, b_by = bound(hm.numel() * 4 + 16 * k_lm * 3 * 4,
+                           2.0 * hm.numel())
+        log(f'K1 time {shape} (LINEMOD eval): {cfg["ranks"]} CTAs per '
+            f'image of {cfg["threads"]} threads, {4 * cfg["vec"]}-byte '
+            f'loads; eager calls kernel {ms:.4f} ms, plain {plain_ms:.4f} '
+            f'ms; graph replay kernel {g_ms:.4f} ms, plain {g_plain_ms:.4f} '
+            f'ms; bound {b_ms:.4f} ms ({b_by})')
+        del cases, bufs, hm, plateau, first
     # W * K odd: the kernel's 4-byte-load instance; 16 CTAs per image in
     # bands of 3 rows, the last three empty
     odd = torch.rand((3, 37, 29, 7), generator=gen, device=DEVICE)
@@ -1965,6 +2015,366 @@ def phase_group() -> None:
                              'steps without a group')
 
 
+# phase 16: the LINEMOD/PVNet family at the command's full width
+LM_SIZE, LM_KP, LM_BATCH = 128, 9, 16
+LM_CLI = ('--epochs', '2', '--steps-per-epoch', '50', '--batch-size', '16',
+          '--eval-batches', '4')
+# a differing mask pixel must lie on a triangle edge: an edge function
+# within this many px^2 of zero (f32 products of up to ~1e4 px^2 round at
+# ~1e-3 px^2, with or without a fused multiply-add)
+EDGE_PX2 = 1e-2
+VOTING_RUNS = (32, 9)           # keypoints: bench.py's voting mode, the CLI
+
+
+def linemod_object():
+    """The command's synthetic object on the card: (db, vertices, faces,
+    the 9 FPS keypoints)."""
+    from esa_pose_estimation_tpu_torch.cli import train_linemod as tl
+    from esa_pose_estimation_tpu_torch.data.linemod import LineModModelDB
+    verts, faces = tl.make_icosphere()
+    db = LineModModelDB()
+    db.register('cat', vertices=verts)
+    kp3d = torch.as_tensor(db.get_farthest_3d('cat', LM_KP),
+                           dtype=torch.float32, device=DEVICE)
+    return (db, torch.as_tensor(verts, device=DEVICE),
+            torch.as_tensor(faces, device=DEVICE), kp3d)
+
+
+def linemod_ideal(db, pts, faces, kp3d) -> None:
+    """16a: tests/test_train_linemod.py's well-posed harness at full size:
+    ideal targets of 16 rendered poses through heatmaps -> K1 ->
+    RANSAC-EPnP and through the vertex field -> voting -> distribution ->
+    uncertainty PnP must score 1.0 on 2D projection and ADD."""
+    from esa_pose_estimation_tpu_torch.cli import train_linemod as tl
+    from esa_pose_estimation_tpu_torch.eval import evaluator
+    from esa_pose_estimation_tpu_torch.ops import heatmap, peak, pnp
+    from esa_pose_estimation_tpu_torch.ops import vertex, voting
+    from esa_pose_estimation_tpu_torch.utils.seeding import generator
+    b = tl.synthetic_linemod_batch(generator(DEVICE, SEED, 16), LM_BATCH,
+                                   pts, faces, kp3d, LM_SIZE)
+    p3 = kp3d.expand((LM_BATCH,) + kp3d.shape)
+    hm, _ = heatmap.render_targets(b['keypoints_2d'], LM_SIZE, LM_SIZE, 2.0)
+    coords, _ = peak.decode_heatmaps_auto_nhwc(
+        hm.permute(0, 2, 3, 1).contiguous())
+    res = pnp.ransac_epnp(p3, coords, b['K'], generator(DEVICE, SEED, 3))
+    field = vertex.vertex_field(b['mask'], b['keypoints_2d'])
+    vres = voting.ransac_voting(b['mask'], field, generator(DEVICE, SEED, 4))
+    mean, cov = voting.estimate_voting_distribution_with_mean(
+        b['mask'], field, vres.keypoints, generator(DEVICE, SEED, 6))
+    R, t = pnp.uncertainty_pnp(p3, mean, cov, b['K'],
+                               generator(DEVICE, SEED, 5))
+    out = {}
+    for route, (Rp, tp) in (('heatmap', (res.R, res.t)), ('pvnet', (R, t))):
+        acc = evaluator.pose_accuracy(pts, db.get_diameter('cat'), b['K'],
+                                      Rp, tp, b['R'], b['t'])
+        out[route] = {k: float(v) for k, v in acc.items()}
+        if not (out[route]['projection_2d'] == 1.0
+                and out[route]['add'] == 1.0):
+            raise AssertionError(f'linemod ideal targets, {route}: {out}')
+    kp_err = float((vres.keypoints - b['keypoints_2d']).abs().max())
+    log(f'linemod 16a ideal targets (16 poses at 128 px, 9 keypoints): '
+        f'{json.dumps(out)}; voting keypoints max abs err {kp_err:.4f} px')
+
+
+def edge_distance(verts, faces, R, t, K, h: int, w: int) -> torch.Tensor:
+    """(H, W) f64 on the CPU: per pixel, the smallest |edge function| over
+    the triangles whose other two edge tests pass: near zero on an edge."""
+    from esa_pose_estimation_tpu_torch.core.camera import project_points
+    f64 = torch.float64
+    uv = project_points(verts.cpu().to(f64), R.cpu().to(f64),
+                        t.cpu().to(f64), K.cpu().to(f64))
+    tri = uv[faces.cpu().long()]                             # (F, 3, 2)
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=f64),
+                            torch.arange(w, dtype=f64), indexing='ij')
+    px, py = xs.reshape(1, -1), ys.reshape(1, -1)
+
+    def edge(p, q):
+        return ((q[:, 0, None] - p[:, 0, None]) * (py - p[:, 1, None])
+                - (q[:, 1, None] - p[:, 1, None]) * (px - p[:, 0, None]))
+    a, b, c = tri[:, 0], tri[:, 1], tri[:, 2]
+    area = ((b[:, 0] - a[:, 0]) * (c[:, 1] - a[:, 1])
+            - (b[:, 1] - a[:, 1]) * (c[:, 0] - a[:, 0]))
+    sgn = torch.where(area >= 0, 1.0, -1.0).to(f64)[:, None]
+    ws = [edge(b, c) * sgn, edge(c, a) * sgn, edge(a, b) * sgn]
+    best = torch.full((h * w,), math.inf, dtype=f64)
+    for i in range(3):
+        o = [ws[j] for j in range(3) if j != i]
+        near = (o[0] >= -EDGE_PX2) & (o[1] >= -EDGE_PX2)
+        cand = torch.where(near, ws[i].abs(), math.inf).amin(dim=0)
+        best = torch.minimum(best, cand)
+    return best.reshape(h, w)
+
+
+def linemod_render(pts, faces) -> None:
+    """16b: the batched rasterizer on the card against the CPU for 8 poses
+    of the icosphere: masks equal except on triangle-edge pixels, depth
+    within 1e-5 relative where both cover."""
+    from esa_pose_estimation_tpu_torch.cli import train_linemod as tl
+    from esa_pose_estimation_tpu_torch.core.camera import quat_to_rotmat
+    from esa_pose_estimation_tpu_torch.utils import render
+    from esa_pose_estimation_tpu_torch.utils.seeding import generator
+    d = tl.draw_synthetic_poses(generator(DEVICE, SEED, 17), 8, DEVICE)
+    R = quat_to_rotmat(d['quat'])
+    t = torch.zeros((8, 3), device=DEVICE)
+    t[:, 2] = d['tz']
+    K = tl.synthetic_k(LM_SIZE, DEVICE)
+    mc, dc = render.rasterize(pts, faces, R, t, K, LM_SIZE, LM_SIZE)
+    mh, dh = render.rasterize(pts.cpu(), faces.cpu(), R.cpu(), t.cpu(),
+                              K.cpu(), LM_SIZE, LM_SIZE)
+    mc, dc = mc.cpu(), dc.cpu()
+    differ = mc != mh
+    for i in torch.nonzero(differ.flatten(1).any(1)).flatten().tolist():
+        dist = edge_distance(pts, faces, R[i], t[i], K, LM_SIZE, LM_SIZE)
+        if not bool((dist[differ[i]] < EDGE_PX2).all()):
+            raise AssertionError(f'render pose {i}: a mask pixel off the '
+                                 f'triangle edges differs card vs CPU')
+    both = mc & mh
+    rel = float(((dc[both] - dh[both]).abs() / dh[both]).max())
+    if not rel <= 1e-5:
+        raise AssertionError(f'render: depth differs by {rel} relative')
+    log(f'linemod 16b render card vs CPU, 8 poses at 128 px: '
+        f'{int(differ.sum())} of {int((mc | mh).sum())} covered pixels '
+        f'differ (all within {EDGE_PX2} px^2 of a triangle edge), depth '
+        f'max rel err {rel:.3g} (tolerance 1e-5)')
+
+
+def linemod_commands(root: str) -> int:
+    """16c: cli.train_linemod in both modes at the command's defaults for
+    2 epochs of 50 steps at batch 16 with 4 eval batches: finite losses,
+    the second epoch below the first; ms per step, images/s, peak memory,
+    K1's launches in the heatmap eval.  Returns those launches."""
+    from esa_pose_estimation_tpu_torch.cli import train_linemod
+    from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
+        peak_decode,
+    )
+    launches = 0
+    for mode in ('heatmap', 'pvnet'):
+        wd = f'{root}/{mode}'
+        torch.cuda.reset_peak_memory_stats()
+        peak_decode.launches = 0
+        t0 = time.perf_counter()
+        res = train_linemod.main(['--workdir', wd, '--mode', mode, *LM_CLI])
+        secs = time.perf_counter() - t0
+        n_k1 = peak_decode.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rows = Path(wd, 'log_cat.txt').read_text().strip().split('\n')[1:]
+        losses = [float(r.split('\t')[2]) for r in rows]
+        with open(f'{wd}/events.jsonl') as f:
+            epochs = [e for e in map(json.loads, f) if e['event'] == 'epoch']
+        if not (len(losses) == 2 and all(map(math.isfinite, losses))
+                and losses[1] < losses[0]):
+            raise AssertionError(f'cli.train_linemod {mode}: losses {losses}')
+        if (n_k1 == 0) == (mode == 'heatmap'):
+            raise AssertionError(f'cli.train_linemod {mode}: {n_k1} K1 '
+                                 f'launches in its eval')
+        step_ms = epochs[1]['train_seconds'] / epochs[1]['steps'] * 1e3
+        log(f'linemod 16c cli.train_linemod --mode {mode} '
+            f'{" ".join(LM_CLI)}: losses {losses}, triple {json.dumps(res)}, '
+            f'epoch 2 {step_ms:.2f} ms/step ({LM_BATCH * 1e3 / step_ms:.0f} '
+            f'images/s; epoch 1 {epochs[0]["train_seconds"]:.2f} s with the '
+            f'warm-up), peak memory {peak:.2f} GiB, K1 launches in the eval '
+            f'{n_k1}, command {secs:.1f} s')
+        if mode == 'heatmap':
+            launches = n_k1
+    return launches
+
+
+def linemod_step_profile(pts, faces, kp3d) -> None:
+    """16c: one heatmap-mode step of the command's loop under the
+    profiler, the render of its batch and the optimizer step apart:
+    launches, kernel ms, wall ms."""
+    from esa_pose_estimation_tpu_torch.cli import train_linemod as tl
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+    from esa_pose_estimation_tpu_torch.utils.seeding import generator
+    model = tl.build_model('heatmap', LM_KP).to(
+        device=DEVICE, memory_format=torch.channels_last)
+    model.init_weights(generator(DEVICE, 0))
+    st = tl.create_state(model, 1e-3, 100)
+    gen = generator(DEVICE, SEED, 19)
+    box = {}
+
+    def render():
+        box['b'] = tl.synthetic_linemod_batch(gen, LM_BATCH, pts, faces,
+                                              kp3d, LM_SIZE)
+
+    def step():
+        b = box['b']
+        tstate.optimize(st, lambda m: tl.linemod_loss(
+            m, tl.synthetic_inputs(b), 'heatmap', b['keypoints_2d'],
+            b['mask']))
+    for name, call in (('render', render), ('step', step)):
+        n, busy, wall = kernel_profile(call)
+        log(f'linemod 16c profile, {name} of one heatmap step at batch 16: '
+            f'{n} kernel launches, {busy:.2f} ms of kernel time in '
+            f'{wall:.2f} ms of wall under the profiler'
+            + (f', idle share {1 - busy / wall:.3f}' if n else
+               ' (no device time recorded: not measured)'))
+
+
+def write_data2(root: str) -> tuple[str, str]:
+    """A tiny data2/ layout of 640x480 frames (tests/test_linemod_real.py's
+    fixture at the reference's frame size): 4 real (train 0, 2; test 1, 3),
+    2 render, 2 fuse, 2 occlusion records with their PNGs."""
+    import os
+    import pickle
+
+    import numpy as np
+    from PIL import Image
+
+    from esa_pose_estimation_tpu_torch.data.linemod import FUSE_CLS_ORDER
+    rng = np.random.default_rng(SEED)
+    img_root, pkl = f'{root}/LINEMOD', f'{root}/data2'
+
+    def record(i, prefix):
+        x1, y1 = rng.uniform(150, 350, 2)
+        return {'rgb_pth': f'{prefix}/{i}.jpg.png',
+                'dpt_pth': f'{prefix}_mask/{i}.png',
+                'bbox': np.array([x1, y1, x1 + rng.uniform(60, 150),
+                                  y1 + rng.uniform(60, 120)], np.float32),
+                'sift': rng.uniform(200, 400, (LM_KP, 2)).astype(np.float32),
+                'sift_3d': rng.normal(scale=0.05, size=(LM_KP, 3)).astype(
+                    np.float32),
+                'K': np.array([[572.4, 0, 325.3], [0, 573.6, 242.0],
+                               [0, 0, 1]], np.float32),
+                'RT': np.hstack([np.eye(3), [[0.], [0.], [0.6]]]).astype(
+                    np.float32)}
+    real = [record(i, 'real') for i in range(4)]
+    render = [record(i, 'render') for i in range(2)]
+    fuse = [record(i, 'fuse') for i in range(2)]
+    for r in fuse:
+        r['rgb_pth'] = f'fuse/f{r["rgb_pth"].split("/")[1]}'
+    occ = [record(i, 'occ') for i in range(2)]
+    for des in real + render + fuse + occ:
+        for path in (des['rgb_pth'], des['dpt_pth']):
+            os.makedirs(os.path.dirname(f'{img_root}/{path}'), exist_ok=True)
+        Image.fromarray((rng.random((480, 640, 3)) * 255).astype(np.uint8)
+                        ).save(f'{img_root}/{des["rgb_pth"]}')
+        x1, y1, x2, y2 = des['bbox'].astype(int)
+        if os.path.basename(des['rgb_pth']).startswith('f'):
+            m = np.zeros((480, 640), np.uint8)
+            m[y1:y2, x1:x2] = FUSE_CLS_ORDER.index('cat') + 1
+        else:
+            m = np.zeros((480, 640, 3), np.uint8)
+            m[y1:y2, x1:x2] = 255
+        Image.fromarray(m).save(f'{img_root}/{des["dpt_pth"]}')
+    os.makedirs(f'{pkl}/occ', exist_ok=True)
+    for name, obj in (('cat_real', real), ('cat_render', render),
+                      ('cat_fuse', fuse), ('occ/cat_real', occ),
+                      ('cat_train', [(f'x/{i}.jpg',) for i in (0, 2)]),
+                      ('cat_test', [(f'x/{i}.jpg',) for i in (1, 3)])):
+        with open(f'{pkl}/{name}.pkl', 'wb') as f:
+            pickle.dump(obj, f)
+    return pkl, img_root
+
+
+def linemod_real(root: str) -> None:
+    """16d: cli.train_linemod on a data2/ layout written here, one epoch
+    with --augment in both modes and the occlusion eval: finite losses,
+    one occ_result.txt row of three finite numbers."""
+    from esa_pose_estimation_tpu_torch.cli import train_linemod
+    t0 = time.perf_counter()
+    pkl, img_root = write_data2(root)
+    for mode in ('heatmap', 'pvnet'):
+        wd = f'{root}/real_{mode}'
+        res = train_linemod.main([
+            '--workdir', wd, '--mode', mode, '--epochs', '1',
+            '--batch-size', '2', '--pkl-dir', pkl, '--image-root', img_root,
+            '--augment', '--occ-pkl-dir', pkl, '--occ-image-root',
+            img_root])
+        rows = Path(wd, 'log_cat.txt').read_text().strip().split('\n')[1:]
+        occ = Path(wd, 'occ_result.txt').read_text().strip().split('\n')
+        vals = [float(v) for v in occ[0].split('\t')[1:]]
+        loss = float(rows[0].split('\t')[2])
+        if not (len(rows) == 1 and math.isfinite(loss) and len(occ) == 1
+                and len(vals) == 3 and all(map(math.isfinite, vals))):
+            raise AssertionError(f'cli.train_linemod real {mode}: log {rows}'
+                                 f', occ {occ}')
+        test = {k: v for k, v in res.items() if not k.startswith('occ')}
+        log(f'linemod 16d real layout --mode {mode} --augment: loss '
+            f'{loss:.4f}, test triple {json.dumps(test)}, occ_result.txt '
+            f'{occ[0]!r}')
+    log(f'linemod 16d: {time.perf_counter() - t0:.1f} s')
+
+
+def kernel_profile(call) -> tuple[int, float, float]:
+    """(kernel launches, kernel ms, wall ms) of one ``call()`` under
+    torch.profiler, after one warm-up call; (0, 0, wall) when the profiler
+    saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return len(kernels), busy, wall_ms
+
+
+def linemod_voting() -> None:
+    """16e: ransac_voting on exact fields of 16 images at 128 px, 128
+    hypotheses, K = 32 (bench.py's voting operating point) and K = 9:
+    keypoints within 0.01 px; ms per image, launches of one call and the
+    device's idle share under torch.profiler."""
+    from esa_pose_estimation_tpu_torch.ops import vertex, voting
+    from esa_pose_estimation_tpu_torch.utils.seeding import generator
+    from esa_pose_estimation_tpu_torch.utils.timing import cuda_ms
+    s, b = LM_SIZE, LM_BATCH
+    for k in VOTING_RUNS:
+        gen = generator(DEVICE, SEED, 18, k)
+        mask = torch.zeros((b, s, s), device=DEVICE)
+        mask[:, 24:104, 32:96] = 1.0
+        kps = 16 + (s - 32) * torch.rand((b, k, 2), generator=gen,
+                                         device=DEVICE)
+        field = vertex.vertex_field(mask, kps)
+
+        def call():
+            return voting.ransac_voting(mask, field, gen, n_hypotheses=128)
+
+        def spread():                  # the pvnet eval's second pass
+            return voting.estimate_voting_distribution_with_mean(
+                mask, field, kps, gen)
+        err = float((call().keypoints - kps).abs().max())
+        if not err <= 0.01:
+            raise AssertionError(f'voting K={k}: keypoints off by {err} px')
+        ms = cuda_ms(call, [()], iters=10)
+        n, busy, wall = kernel_profile(call)
+        idle = (f'{1 - busy / wall:.3f}' if n else 'not measured')
+        steady = (f'{max(0.0, 1 - busy / ms):.3f}' if n else 'not measured')
+        log(f'linemod 16e ransac_voting (16, 128, 128), K={k}, 128 '
+            f'hypotheses, exact field: keypoints max abs err {err:.2e} px '
+            f'(tolerance 0.01); {ms:.3f} ms per call = {ms / b:.4f} ms per '
+            f'image; {n} kernel launches per call, {busy:.3f} ms of kernel '
+            f'time in {wall:.3f} ms under the profiler, device idle share '
+            f'{idle} under it, {steady} of back-to-back calls')
+        ms2 = cuda_ms(spread, [()], iters=3, warmup=1)
+        n2, busy2, _ = kernel_profile(spread)
+        log(f'linemod 16e estimate_voting_distribution_with_mean, K={k}, '
+            f'1024 hypotheses: {ms2:.3f} ms per call = {ms2 / b:.4f} ms per '
+            f'image, {n2} kernel launches, {busy2:.3f} ms of kernel time')
+
+
+def phase_linemod() -> int:
+    """16: the LINEMOD/PVNet family.  Returns K1's launches in one
+    heatmap-mode eval of cli.train_linemod (16c)."""
+    import tempfile
+    t0 = time.perf_counter()
+    db, pts, faces, kp3d = linemod_object()
+    linemod_ideal(db, pts, faces, kp3d)
+    linemod_render(pts, faces)
+    with tempfile.TemporaryDirectory() as root:
+        launches = linemod_commands(root)
+        linemod_step_profile(pts, faces, kp3d)
+        linemod_real(root)
+    linemod_voting()
+    log(f'linemod: phase {time.perf_counter() - t0:.1f} s')
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_device()
@@ -1992,6 +2402,7 @@ def main() -> None:
     k1['launches_two_stage_eval'] = phase_detector(model, pts)
     k1['launches_shard_train_eval'] = phase_shards(pts, rates)
     phase_group()
+    k1['launches_linemod_eval'] = phase_linemod()
     log(f'total: {time.perf_counter() - t_start:.1f} s')
     # graph_ms / plain_graph_ms (K1 and K2): the same calls replayed from a
     # CUDA graph, beside ms / plain_ms by eager calls as in earlier PRs;
@@ -2000,12 +2411,14 @@ def main() -> None:
     # phase 12c (four batches of 32 held-out frames); launches_two_stage_eval
     # (K1): in cli.eval_synthetic --detector-workdir of phase 13 (128
     # frames); launches_shard_train_eval (K1): in the in-train evaluate of
-    # cli.train --train-shard in phase 14 (four batches of 32 frames)
+    # cli.train --train-shard in phase 14 (four batches of 32 frames);
+    # launches_linemod_eval (K1): in the heatmap-mode evals of
+    # cli.train_linemod in phase 16c (two epochs of four batches of 16)
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
             'graph_ms', 'plain_graph_ms', 'launches_two_stage',
             'launches_train_eval', 'launches_two_stage_eval',
-            'launches_shard_train_eval')
+            'launches_shard_train_eval', 'launches_linemod_eval')
     print(json.dumps({'kernels': [{k: rec[k] for k in keys if k in rec}
                                   for rec in (k1, k2, k3)]}))
     print(json.dumps({'ok': True, 'device': {

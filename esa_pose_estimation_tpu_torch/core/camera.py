@@ -29,6 +29,14 @@ SPEED_K = np.array(
     dtype=np.float64,
 )
 
+# LINEMOD camera (reference: pnp.py:8-10), for the PVNet family.
+LINEMOD_K = np.array(
+    [[572.4114, 0.0, 325.2611],
+     [0.0, 573.57043, 242.04899],
+     [0.0, 0.0, 1.0]],
+    dtype=np.float64,
+)
+
 
 @lru_cache(maxsize=8)
 def speed_k(dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
@@ -36,6 +44,14 @@ def speed_k(dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
     device): a copy from host memory on every call would make the host
     wait for the queued kernels.  Shared: do not write to it."""
     return torch.as_tensor(SPEED_K, dtype=dtype, device=device)
+
+
+@lru_cache(maxsize=8)
+def linemod_k(dtype: torch.dtype = torch.float32, device=None
+              ) -> torch.Tensor:
+    """:data:`LINEMOD_K` as a tensor on ``device``, copied once per
+    (dtype, device), as :func:`speed_k`.  Shared: do not write to it."""
+    return torch.as_tensor(LINEMOD_K, dtype=dtype, device=device)
 
 
 def normalize_quat(q: torch.Tensor) -> torch.Tensor:
@@ -141,3 +157,9 @@ def project_points(points_3d: torch.Tensor, R: torch.Tensor, t: torch.Tensor,
     u = fx[..., None] * xy[..., 0] + cx[..., None]
     v = fy[..., None] * xy[..., 1] + cy[..., None]
     return torch.stack([u, v], dim=-1)
+
+
+def pose_to_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """[R|t] 3x4 pose matrix (the reference's ``pose_pred`` layout,
+    pnp.py:90)."""
+    return torch.cat([R, t[..., :, None]], dim=-1)

@@ -152,21 +152,23 @@ class BatchNorm(nn.Module):
 class Conv(nn.Conv2d):
     """A conv with f32 parameters that computes in ``dtype``: input, kernel
     and bias are cast at use, as Flax's ``nn.Conv(dtype=...)`` casts them.
-    Padding is k//2 on both sides, the stride-2 convs included.  A serving
-    model may store the parameters in ``dtype`` already
+    Padding is ``dilation * (k//2)`` on both sides, the stride-2 convs
+    included (Flax's ``padding=dilation`` of the dilated ResNet-8s convs).
+    A serving model may store the parameters in ``dtype`` already
     (:func:`store_in_compute_dtype`); the cast is then a no-op."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 bias: bool = False, dtype=torch.float32):
+                 bias: bool = False, dtype=torch.float32, dilation: int = 1):
         super().__init__(cin, cout, kernel, stride=stride,
-                         padding=kernel // 2, bias=bias)
+                         padding=dilation * (kernel // 2), dilation=dilation,
+                         bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride,
-                        self.padding)
+                        self.padding, self.dilation)
 
 
 @torch.no_grad()

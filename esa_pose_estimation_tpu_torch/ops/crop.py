@@ -209,3 +209,130 @@ def normalize(crops: torch.Tensor, mean: float = 0.449, std: float = 0.229
               ) -> torch.Tensor:
     """uint8-range crop -> normalized float (ToTensor then Normalize)."""
     return (crops / 255.0 - mean) / std
+
+
+def adjust_bbox_linemod(bbox: torch.Tensor, img_w: int = 640,
+                        img_h: int = 480, k: float = 1.1,
+                        min_size: int = 128
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """LINEMOD crop-box rule (data_load3.py:155-205, occlusion loader
+    data_load3.py:309-360), which differs from the ESA rule:
+
+    * half-extent floored at ``min_size/2`` before the margin;
+    * margin ``k = 1.1``;
+    * clamp-shift into the frame;
+    * then grow the clamped window back to a ``max(min_size, left, down)``
+      square, shifting inside the frame instead of edge-padding.
+
+    bbox: (..., 4) corners [x1, y1, x2, y2].  Returns (origin (..., 2)
+    int32, crop_sizes (..., 2) int32 [left, down], size (...,) int32 — the
+    stretch target; ``rate = min_size / size``).  The integer arithmetic
+    replicates the reference's ``int()`` of f64 products; a box larger than
+    the frame is clamped to the full frame, as in the JAX package.
+    """
+    x1, y1, x2, y2 = bbox[..., 0], bbox[..., 1], bbox[..., 2], bbox[..., 3]
+    c0 = _trunc_int((x1 + x2) / 2)
+    c1 = _trunc_int((y1 + y2) / 2)
+    half = _trunc_int(torch.clamp(torch.maximum(x2 - x1, y2 - y1),
+                                  min=float(min_size)) / 2)
+
+    x_new, y_new, w_new, h_new = _expand_box_int(
+        c0, c1, half, k, table_size=max(img_w, img_h) + 2)
+    h_new = torch.where(w_new - x_new != h_new - y_new,
+                        y_new + (w_new - x_new), h_new)
+    # clamp-shift into the frame (data_load3.py:170-181)
+    w_new = torch.where(x_new < 0, w_new - x_new, w_new)
+    x_new = torch.clamp(x_new, min=0)
+    h_new = torch.where(y_new < 0, h_new - y_new, h_new)
+    y_new = torch.clamp(y_new, min=0)
+    x_new = torch.where(w_new > img_w, x_new + img_w - w_new, x_new)
+    w_new = torch.clamp(w_new, max=img_w)
+    y_new = torch.where(h_new > img_h, y_new + img_h - h_new, y_new)
+    h_new = torch.clamp(h_new, max=img_h)
+    x_new = torch.clamp(x_new, min=0)
+    y_new = torch.clamp(y_new, min=0)
+
+    # grow back to square inside the frame (data_load3.py:182-205)
+    left = w_new - x_new
+    down = h_new - y_new
+    size = torch.clamp(torch.maximum(left, down), min=min_size)
+
+    def grow(lo, hi, extent, limit):
+        dis = size - extent
+        fits = hi + dis < limit
+        hi_out = torch.where((dis > 0) & fits, hi + dis, hi)
+        shifted = torch.where((dis > 0) & ~fits, lo - dis, lo)
+        hi_out = torch.where((dis > 0) & ~fits & (shifted < 0),
+                             hi_out - shifted, hi_out)
+        lo_out = torch.where((dis > 0) & ~fits, torch.clamp(shifted, min=0),
+                             lo)
+        # the reference's numpy slice clamps the far edge to the frame
+        return lo_out, torch.clamp(hi_out, max=limit)
+
+    x_new, w_new = grow(x_new, w_new, left, img_w)
+    y_new, h_new = grow(y_new, h_new, down, img_h)
+    origin = torch.stack([x_new, y_new], dim=-1)
+    crop_sizes = torch.stack([w_new - x_new, h_new - y_new], dim=-1)
+    return origin, crop_sizes, size
+
+
+def crop_resize_stretch(images: torch.Tensor, origin: torch.Tensor,
+                        crop_sizes: torch.Tensor, out_size: int
+                        ) -> torch.Tensor:
+    """Batched crop+resize that stretches each axis of the window to
+    ``out_size`` (cv2.resize of a possibly non-square window, the LINEMOD
+    path, data_load3.py:211-215).  images (B, H, W[, C])."""
+    squeeze = images.dim() == 3
+    if squeeze:
+        images = images[..., None]
+    b, h, w, c = images.shape
+    grid = (torch.arange(out_size, dtype=torch.float32,
+                         device=images.device) + 0.5)[None, :]
+    o = origin.to(torch.float32)
+    cs = crop_sizes.to(torch.float32)
+    sx = grid * (cs[:, 0:1] / out_size) - 0.5 + o[:, 0:1]
+    sy = grid * (cs[:, 1:2] / out_size) - 0.5 + o[:, 1:2]
+    hi = (origin + crop_sizes).to(torch.float32) - 1.0
+    sx = torch.minimum(torch.maximum(sx, o[:, 0:1]), hi[:, 0:1])
+    sy = torch.minimum(torch.maximum(sy, o[:, 1:2]), hi[:, 1:2])
+    Wy = _interp_matrix(sy, h)
+    Wx = _interp_matrix(sx, w)
+    img = images.to(torch.float32)
+    rows = torch.einsum('byh,bhwc->bywc', Wy, img)
+    out = torch.einsum('bxw,bywc->byxc', Wx, rows)
+    return out[..., 0] if squeeze else out
+
+
+def crop_resize_linemod(images: torch.Tensor, bboxes: torch.Tensor,
+                        out_size: int, img_w: int = 640, img_h: int = 480,
+                        k: float = 1.1
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """LINEMOD detect->crop->resize (data_load3.py:155-215).  Returns
+    (crops, rates = out_size / size, origins); keypoints map to the crop as
+    ``rate * (kp - origin)`` (data_load3.py:230)."""
+    origin, crop_sizes, size = adjust_bbox_linemod(bboxes, img_w, img_h, k,
+                                                   min_size=out_size)
+    crops = crop_resize_stretch(images, origin, crop_sizes, out_size)
+    return crops, out_size / size.to(torch.float32), origin
+
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+@lru_cache(maxsize=8)
+def _channel_constants(mean: tuple[float, ...], std: tuple[float, ...],
+                       device: torch.device
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The mean and std as f32 tensors on ``device``, copied once."""
+    return (torch.tensor(mean, dtype=torch.float32, device=device),
+            torch.tensor(std, dtype=torch.float32, device=device))
+
+
+def normalize_rgb(crops: torch.Tensor,
+                  mean: tuple[float, ...] = IMAGENET_MEAN,
+                  std: tuple[float, ...] = IMAGENET_STD) -> torch.Tensor:
+    """[0, 255] RGB crops (B, H, W, 3) -> per-channel normalized float (the
+    LINEMOD transform, data_load3.py:78-88)."""
+    m, s = _channel_constants(tuple(mean), tuple(std), crops.device)
+    return (crops / 255.0 - m) / s

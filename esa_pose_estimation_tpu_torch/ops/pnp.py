@@ -11,8 +11,12 @@
 Everything is static-shape and branch-free (accept/reject via ``where``),
 f32 in K-normalized coordinates, with Python loops of fixed length where
 the reference uses ``lax.scan``.  Nothing on the path reads a value back
-to the host.  The covariance-weighted ``uncertainty_pnp`` waits for the
-LINEMOD slice.
+to the host.
+
+* :func:`uncertainty_pnp` replaces the Ceres ``uncertainty_pnp`` of the
+  LINEMOD/PVNet path (lib/utils/extend_utils/src/uncertainty_pnp.cpp:7-92):
+  RANSAC-EPnP, then LM on the reprojection residual weighted per point by
+  the inverse square root of its voting covariance.
 """
 
 from __future__ import annotations
@@ -22,7 +26,10 @@ from typing import NamedTuple
 import torch
 
 from esa_pose_estimation_tpu_torch.core import linalg
-from esa_pose_estimation_tpu_torch.core.camera import rodrigues
+from esa_pose_estimation_tpu_torch.core.camera import (
+    rodrigues,
+    rotmat_to_rvec,
+)
 from esa_pose_estimation_tpu_torch.ops.epnp import (
     EpnpShared,
     epnp_from_mask,
@@ -297,3 +304,128 @@ def ransac_epnp(points_3d: torch.Tensor, points_2d: torch.Tensor,
     final_inl = (reprojection_errors(points_3d, points_2d, R, t, K)
                  < reproj_threshold) & v
     return PnPResult(R=R, t=t, inliers=final_inl, cost=cost)
+
+
+def lm_refine_single(points_3d: torch.Tensor, points_2d: torch.Tensor,
+                     weights: torch.Tensor, K: torch.Tensor,
+                     rvec0: torch.Tensor, t0: torch.Tensor, iters: int = 20
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """LM from an axis-angle init.  Returns (rvec, t, cost)."""
+    R, t, cost = _lm_refine_batched(points_3d, points_2d, weights, K,
+                                    rodrigues(rvec0), t0, iters)
+    return rotmat_to_rvec(R), t, cost
+
+
+def _lm_refine_cov(points_3d: torch.Tensor, points_2d: torch.Tensor,
+                   Wmat: torch.Tensor, K: torch.Tensor,
+                   R0: torch.Tensor, t0: torch.Tensor, iters: int = 20
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Damped Gauss-Newton with per-point 2x2 residual weights: the
+    residual ``W_i (proj_i - obs_i)`` in pixels, the Ceres uncertainty-PnP
+    cost (uncertainty_pnp.cpp:7-55, weights ``[wxx wxy; wxy wyy]``),
+    solved in normalized coordinates with the focal scaling folded into W.
+    Returns (R, t, cost)."""
+    fx, fy = K[..., 0, 0], K[..., 1, 1]
+    zero = torch.zeros_like(fx)
+    F = torch.stack([torch.stack([fx, zero], dim=-1),
+                     torch.stack([zero, fy], dim=-1)], dim=-2)
+    Weff = torch.matmul(Wmat, F[..., None, :, :])       # (..., N, 2, 2)
+    norm_2d = normalize_points_2d(points_2d, K)
+    eye6 = torch.eye(6, dtype=points_3d.dtype, device=points_3d.device)
+
+    def residual(R, t):
+        p = torch.einsum('...ij,...nj->...ni', R, points_3d) + t[..., None, :]
+        z = torch.clamp(p[..., 2], min=1e-6)
+        proj = p[..., :2] / z[..., None]
+        r = torch.einsum('...nij,...nj->...ni', Weff, proj - norm_2d)
+        return p, z, r
+
+    R, t = R0, t0
+    lam = torch.full(points_3d.shape[:-2], 1e-3, dtype=points_3d.dtype,
+                     device=points_3d.device)
+    for _ in range(iters):
+        p, z, r = residual(R, t)
+        cost = 0.5 * (r * r).sum((-2, -1))
+        iz = 1.0 / z
+        zz = torch.zeros_like(iz)
+        A = torch.stack([
+            torch.stack([iz, zz, -p[..., 0] * iz * iz], dim=-1),
+            torch.stack([zz, iz, -p[..., 1] * iz * iz], dim=-1)], dim=-2)
+        A = torch.matmul(Weff, A)
+        Jd = torch.matmul(A, -_skew(p - t[..., None, :]))
+        J = torch.cat([Jd, A], dim=-1)                  # (..., N, 2, 6)
+        H = torch.einsum('...nik,...nil->...kl', J, J)
+        g = torch.einsum('...nik,...ni->...k', J, r)
+        diag = torch.diagonal(H, dim1=-2, dim2=-1)
+        damped = H + lam[..., None, None] * (
+            torch.clamp(diag, min=1e-10)[..., None] * eye6)
+        step = -linalg.solve_psd(damped, g)
+        R_new = torch.matmul(rodrigues(step[..., :3]), R)
+        t_new = t + step[..., 3:]
+        _, _, r_new = residual(R_new, t_new)
+        accept = 0.5 * (r_new * r_new).sum((-2, -1)) < cost
+        R = torch.where(accept[..., None, None], R_new, R)
+        t = torch.where(accept[..., None], t_new, t)
+        lam = torch.where(accept, torch.clamp(lam / 3.0, min=1e-10),
+                          torch.clamp(lam * 4.0, max=1e8))
+    _, _, r = residual(R, t)
+    return R, t, 0.5 * (r * r).sum((-2, -1))
+
+
+def cov_to_weight(cov: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """2x2 covariances -> the inverse of sqrt(cov + eps I), closed form
+    (the scipy sqrtm-inverse of the reference, evaluation.py:471-508).
+    For SPD M, sqrt(M) = (M + sqrt(det) I) / sqrt(tr + 2 sqrt(det))."""
+    a = cov[..., 0, 0] + eps
+    b = cov[..., 0, 1]
+    c = cov[..., 1, 1] + eps
+    s = torch.sqrt(torch.clamp(a * c - b * b, min=1e-20))
+    tau = torch.sqrt(torch.clamp(a + c + 2.0 * s, min=1e-20))
+    det_sq = (a + s) * (c + s) - b * b
+    inv_det = tau / torch.clamp(det_sq, min=1e-20)
+    w00 = (c + s) * inv_det
+    w11 = (a + s) * inv_det
+    w01 = -b * inv_det
+    return torch.stack([torch.stack([w00, w01], dim=-1),
+                        torch.stack([w01, w11], dim=-1)], dim=-2)
+
+
+def uncertainty_pnp(points_3d: torch.Tensor, points_2d: torch.Tensor,
+                    covariance: torch.Tensor, K: torch.Tensor,
+                    generator: torch.Generator | None = None,
+                    n_hypotheses: int = 32, iters: int = 20,
+                    masks: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Covariance-weighted PnP (the Ceres ``uncertainty_pnp``,
+    extend_utils.py:64-115).  points_3d (..., N, 3); points_2d (..., N, 2);
+    covariance (..., N, 2, 2), e.g. from
+    ``ops/voting.estimate_voting_distribution_with_mean``.  Seeded by
+    :func:`ransac_epnp` (``generator``/``masks`` pass through to it), then
+    LM on the matrix-weighted residual.  Returns (R, t)."""
+    init = ransac_epnp(points_3d, points_2d, K, generator,
+                       n_hypotheses=n_hypotheses, masks=masks)
+    R, t, _ = _lm_refine_cov(points_3d, points_2d, cov_to_weight(covariance),
+                             K, init.R, init.t, iters)
+    return R, t
+
+
+def solve_pose(points_3d: torch.Tensor, points_2d: torch.Tensor,
+               confidences: torch.Tensor, K: torch.Tensor,
+               generator: torch.Generator | None = None,
+               select_mask: torch.Tensor | None = None,
+               reproj_threshold: float = 5.0, n_hypotheses: int = 64,
+               lm_iters: int = 20, disambiguate: bool = True,
+               masks: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """RANSAC-EPnP on the selected keypoints, then LM weighted by the
+    confidences (demo.py:261-275 / val.py:194-209); ``disambiguate`` also
+    refines the weak-perspective mirror pose and keeps the lower cost
+    (:func:`lm_refine_dual`).  Returns (R (..., 3, 3), t (..., 3))."""
+    sel = (torch.ones_like(confidences, dtype=torch.bool)
+           if select_mask is None else select_mask)
+    init = ransac_epnp(points_3d, points_2d, K, generator, valid=sel,
+                       reproj_threshold=reproj_threshold,
+                       n_hypotheses=n_hypotheses, masks=masks)
+    w = torch.where(sel, confidences, 0.0)
+    refine = lm_refine_dual if disambiguate else lm_refine
+    return refine(points_3d, points_2d, w, K, init.R, init.t, iters=lm_iters)

@@ -43,7 +43,9 @@ def test_port_imports_no_jax():
             'data/augment.py', 'data/pipeline.py', 'ops/heatmap.py',
             'cli/train_detector.py', 'data/shards.py',
             'data/native_loader.py', 'parallel/distributed.py',
-            'parallel/mesh.py'} <= names
+            'parallel/mesh.py', 'cli/train_linemod.py', 'ops/voting.py',
+            'ops/vertex.py', 'ops/geometry.py', 'models/resnet8s.py',
+            'data/linemod.py', 'utils/render.py', 'eval/projector.py'} <= names
     bad = {str(f.relative_to(ROOT)): sorted(m for m in _imported_modules(f)
                                             if _forbidden(m))
            for f in files}
@@ -204,6 +206,28 @@ def test_cpu_training_never_touches_cuda(monkeypatch, tmp_path):
     assert artifact.read_meta(out)['model'] == 'hrnet_tiny'
 
 
+def test_cpu_linemod_training_never_touches_cuda(monkeypatch, tmp_path):
+    """cli.train_linemod in both modes, one epoch of one step with its eval
+    (K1's plain version in heatmap mode, voting and uncertainty PnP in
+    pvnet mode), on the CPU: no CUDA call and no kernel build."""
+    from esa_pose_estimation_tpu_torch import _build
+    from esa_pose_estimation_tpu_torch.cli import train_linemod
+
+    def refuse(*a, **k):
+        raise AssertionError('CUDA touched on a CPU path')
+
+    monkeypatch.setattr(torch.cuda, '_lazy_init', refuse)
+    monkeypatch.setattr(torch.cuda, 'current_stream', refuse)
+    monkeypatch.setattr(_build, 'load', refuse)
+    monkeypatch.setattr(_build, 'build_all', refuse)
+    for mode in ('heatmap', 'pvnet'):
+        res = train_linemod.main([
+            '--workdir', str(tmp_path / mode), '--mode', mode, '--epochs',
+            '1', '--steps-per-epoch', '1', '--batch-size', '2',
+            '--crop-size', '32', '--num-keypoints', '4', '--device', 'cpu'])
+        assert set(res) == {'projection_2d', 'add', 'cm_degree_5'}
+
+
 def test_commands_ask_for_the_card_by_default(monkeypatch, tmp_path):
     """Without --device the commands want cuda; with no card they raise
     rather than run on the CPU."""
@@ -213,6 +237,7 @@ def test_commands_ask_for_the_card_by_default(monkeypatch, tmp_path):
         submit,
         train,
         train_detector,
+        train_linemod,
     )
     from esa_pose_estimation_tpu_torch.utils import artifact
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
@@ -220,6 +245,7 @@ def test_commands_ask_for_the_card_by_default(monkeypatch, tmp_path):
     for main, argv in (
             (train.main, ['--workdir', str(tmp_path / 'r'), '--tiny']),
             (train_detector.main, ['--workdir', str(tmp_path / 'd')]),
+            (train_linemod.main, ['--workdir', str(tmp_path / 'l')]),
             (eval_synthetic.main, art),
             (evaluate.main, art + ['--test-pkl', 'none.pkl']),
             (submit.main, art + ['--test-pkl', 'none.pkl']),
@@ -229,6 +255,7 @@ def test_commands_ask_for_the_card_by_default(monkeypatch, tmp_path):
             main(argv)
     assert not (tmp_path / 'r' / 'net_esa').exists()
     assert not (tmp_path / 'd').exists()
+    assert not (tmp_path / 'l').exists()
 
 
 def test_native_loader_builds_only_the_checkout_source(monkeypatch,
