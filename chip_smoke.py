@@ -102,6 +102,30 @@ ground truth, and times the path.  Phases:
                  modes; (e) ransac_voting timed at (16, 128, 128), 128
                  hypotheses, K = 32 and 9 (keypoints within 0.01 px,
                  launches, idle share)
+ 17. rehearsal   cli.dress_rehearsal at full width (1920x1200 JPEGs, 30
+                 keypoints, hrnet_esa, crop 128), 64/32/16 frames, 2
+                 epochs at batch 32, --host-crop --augment-geom
+                 --eval-every 1, panels where matplotlib is present (4
+                 PNGs per eval): finite losses, best_rotate, finite
+                 scores, a CSV of 48 rows of 8 fields in filename order,
+                 K1 in the in-train evals and in cli.evaluate, seconds per
+                 stage; then cli.evaluate of r5 on the exported test
+                 JPEGs (mean SPEED <= 0.02)
+ 18. reference   r5 exported under the reference's state_dict names,
+     checkpoint  torch.save'd in the reference's wrapper, loaded and
+                 imported into a fresh hrnet_esa: phase 5's 64 frames
+                 served with FUSED_CBAM off (K1) and on (K2, K1),
+                 heatmaps, keypoints and poses torch.equal to r5
+ 19. tooling     (a) rasterize_color card vs CPU (masks and colour equal
+                 off triangle edges, depth 1e-5 relative); (b)
+                 render_driver's fallback renders 16 frames on the card,
+                 db_builder makes the real, render and fuse DBs, and
+                 cli.train_linemod --pkl-dir trains an epoch of at least
+                 20 steps at batch 16 in heatmap mode from them (finite
+                 loss, K1 in its eval); (c) pose_nms, transforms.crop,
+                 vgg16_bn and the instance augmentations card vs CPU at
+                 the CPU tests' tolerances; (d) profiling.Timer spans at
+                 least the CUDA-event time; device_probe's count
 
 Kernel and plain times (``ms``, ``plain_ms``) are means of eager calls
 between CUDA events, host cost included, as in earlier PRs; K1 and K2 are
@@ -113,7 +137,10 @@ the last is a JSON record of each kernel (launches on its main path: the
 serving call for K1 and K2, the branch-chain experiment for K3; for K1
 also its launches in one detect_and_infer call, in phase 12c's
 in-train evaluate, in phase 13's two-stage eval and in phase 14's
-shard-fed in-train evaluate, and in phase 16's LINEMOD evals; error
+shard-fed in-train evaluate, in phase 16's LINEMOD evals, in phase 17's
+rehearsal (in-train evals and cli.evaluate) and in phase 19b's
+cli.train_linemod from built DBs; for K1 and K2 in phase 18's imported
+reference checkpoint; error
 against its plain version, times, bound); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1591,7 +1618,7 @@ def train_commands() -> None:
         wd = f'{root}/run'
         train.main(['--workdir', wd, '--tiny', '--epochs', '2',
                     '--synthetic-size', '64', '--batch-size', '16',
-                    '--eval-every', '1'])
+                    '--eval-every', '1', *panel_args()])
         t_train = time.perf_counter() - t0
         ckpts = set(Path(wd, 'net_esa').iterdir())
         names = {p.name for p in ckpts}
@@ -1919,7 +1946,7 @@ def phase_shards(pts, synthetic_rates: dict[int, float]) -> int:
         peak_decode.launches = 0
         res = train.main(['--workdir', wd, '--train-shard', paths['raw'],
                           '--host-crop', '--epochs', '1', '--batch-size',
-                          '32', '--eval-every', '1'])
+                          '32', '--eval-every', '1', *panel_args()])
         torch.cuda.synchronize()
         launches = peak_decode.launches
         with open(f'{wd}/events.jsonl') as f:
@@ -2375,6 +2402,467 @@ def phase_linemod() -> int:
     return launches
 
 
+def panel_args() -> list[str]:
+    """``--no-panels`` where matplotlib is absent: a probe of the host's
+    plotting library, which draws the eval panels; no device path
+    depends on it."""
+    import importlib.util
+    if importlib.util.find_spec('matplotlib') is not None:
+        return []
+    log('matplotlib is absent: the in-train evals run with --no-panels')
+    return ['--no-panels']
+
+
+REHEARSAL = ('--n-train', '64', '--n-test', '32', '--n-real-test', '16',
+             '--epochs', '2', '--batch-size', '32', '--eval-every', '1')
+
+
+class StageLaunches:
+    """Counts K1's launches in each call of the wrapped commands' ``main``:
+    the count is set to 0 just before a call and read just after."""
+
+    def __init__(self, **modules):
+        self.modules = modules
+        self.counts: dict[str, list[int]] = {k: [] for k in modules}
+
+    def __enter__(self):
+        from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
+            peak_decode,
+        )
+        self.saved = {}
+        for name, mod in self.modules.items():
+            inner = self.saved[name] = mod.main
+
+            def wrapped(argv=None, _inner=inner, _name=name):
+                peak_decode.launches = 0
+                out = _inner(argv)
+                torch.cuda.synchronize()
+                self.counts[_name].append(peak_decode.launches)
+                return out
+            mod.main = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        for name, mod in self.modules.items():
+            mod.main = self.saved[name]
+
+
+def phase_rehearsal() -> tuple[int, int]:
+    """17: cli.dress_rehearsal at full width (1920x1200 frames, 30
+    keypoints, hrnet_esa, crop 128), depth cut to 64/32/16 frames and 2
+    epochs at batch 32 with --host-crop --augment-geom --eval-every 1 and
+    panels; then cli.evaluate of the r5 artifact on the exported test
+    JPEGs (mean SPEED <= 0.02).  Returns K1's launches in the in-train
+    evals and in cli.evaluate."""
+    import csv
+    import os
+    import pickle
+    import tempfile
+
+    from esa_pose_estimation_tpu_torch.cli import dress_rehearsal
+    from esa_pose_estimation_tpu_torch.cli import evaluate as eval_cli
+    from esa_pose_estimation_tpu_torch.cli import train as train_cli
+    t0 = time.perf_counter()
+    no_panels = panel_args()
+    with tempfile.TemporaryDirectory() as root:
+        wd = f'{root}/run'
+        with StageLaunches(train=train_cli, evaluate=eval_cli) as stages:
+            out = dress_rehearsal.main(['--root', root, '--workdir', wd,
+                                        *REHEARSAL, *no_panels])
+        k1_train, k1_eval = stages.counts['train'][0], \
+            stages.counts['evaluate'][0]
+        rows = Path(wd, 'log_esa.txt').read_text().strip().split('\n')[1:]
+        losses = [float(r.split('\t')[2]) for r in rows]
+        if not (len(losses) == 2 and all(map(math.isfinite, losses))):
+            raise AssertionError(f'rehearsal: losses {losses}')
+        if not Path(wd, 'net_esa', 'best_rotate').exists():
+            raise AssertionError('rehearsal: no best_rotate checkpoint')
+        if not no_panels:
+            n_png = [len(os.listdir(f'{wd}/panels/epoch{e:03d}'))
+                     for e in (1, 2)]
+            if n_png != [4, 4]:
+                raise AssertionError(f'rehearsal: panels per eval {n_png}')
+        scores = [out[k] for k in ('eval_score_t', 'eval_score_r',
+                                   'eval_speed')]
+        if not all(map(math.isfinite, scores)):
+            raise AssertionError(f'rehearsal: evaluate scores {scores}')
+        with open(out['csv_path']) as f:
+            csv_rows = list(csv.reader(f))
+        names = []
+        for split in ('test', 'real_test'):
+            with open(f'{root}/{split}.pkl', 'rb') as f:
+                names += [d['rgb_pth'] for d in pickle.load(f)]
+        if not (len(csv_rows) == 48 and all(len(r) == 8 for r in csv_rows)
+                and [r[0] for r in csv_rows] == names):
+            raise AssertionError(f'rehearsal: CSV {len(csv_rows)} rows')
+        if k1_train <= 0 or k1_eval <= 0:
+            raise AssertionError(f'rehearsal: K1 launches {k1_train} in the '
+                                 f'in-train evals, {k1_eval} in evaluate')
+        log(f'rehearsal 17 cli.dress_rehearsal {" ".join(REHEARSAL)} '
+            f'(1920x1200, hrnet_esa, --host-crop --augment-geom, '
+            f'{"no panels" if no_panels else "4 panels per eval"}): seconds '
+            f'per stage {json.dumps(out["timing"])}, losses {losses}, '
+            f'evaluate score_t {out["eval_score_t"]} score_r '
+            f'{out["eval_score_r"]} speed {out["eval_speed"]}, CSV '
+            f'{len(csv_rows)} rows of 8 fields in filename order; K1 '
+            f'launches {k1_train} in the in-train evals, {k1_eval} in '
+            f'cli.evaluate')
+        r5 = eval_cli.main(['--artifact', ARTIFACT, '--workdir', f'{root}/r5',
+                            '--test-pkl', f'{root}/test.pkl', '--image-root',
+                            f'{root}/images/test', '--batch-size', '32'])
+        log(f'rehearsal 17 cli.evaluate --artifact r5 on the 32 exported '
+            f'test JPEGs: speed {r5["speed"]:.5f} (score_t '
+            f'{r5["score_t"]:.5f}, score_r {r5["score_r"]:.5f}, nonfinite '
+            f'{r5["nonfinite"]}; limit 0.02)')
+        if not r5['speed'] <= 0.02:
+            raise AssertionError(f'rehearsal: r5 on the JPEGs {r5["speed"]}'
+                                 ' > 0.02')
+    log(f'rehearsal: phase {time.perf_counter() - t0:.1f} s')
+    return k1_train, k1_eval
+
+
+def phase_reference_checkpoint(model, s, pts) -> tuple[int, int]:
+    """18: the r5 weights exported under the reference's names, saved as
+    the reference saves them (the 'net' wrapper, 'module.' prefixes),
+    loaded and imported into a fresh hrnet_esa on the card, then phase 5's
+    64 frames served with FUSED_CBAM off (K1) and on (K2 and K1): heatmaps
+    and poses torch.equal to serving r5 directly.  Returns K1's and K2's
+    launches in the imported model's FUSED_CBAM run."""
+    import tempfile
+
+    from esa_pose_estimation_tpu_torch.experimental.cbam_fuse import (
+        fused_cbam,
+    )
+    from esa_pose_estimation_tpu_torch.models import layers
+    from esa_pose_estimation_tpu_torch.models.hrnet import HRNet
+    from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
+        peak_decode,
+    )
+    from esa_pose_estimation_tpu_torch.utils import config as cfg_mod
+    from esa_pose_estimation_tpu_torch.utils import torch_import
+    t0 = time.perf_counter()
+    sd = torch_import.export_reference_hrnet(model)
+    with tempfile.TemporaryDirectory() as root:
+        path = f'{root}/seg_hrnet3.pth'
+        torch.save({'net': {'module.' + k: v for k, v in sd.items()},
+                    'epoch': 0}, path)
+        loaded = torch_import.load_torch_checkpoint(path)
+    imported = HRNet(cfg_mod.hrnet_esa(), dtype=torch.bfloat16)
+    torch_import.import_reference_hrnet(imported, loaded)
+    imported = layers.store_in_compute_dtype(imported.to(
+        device=DEVICE, memory_format=torch.channels_last)).eval()
+    launches = (0, 0)
+    for fused in (False, True):
+        layers.FUSED_CBAM = fused
+        try:
+            want = serve(model, s, pts)
+            peak_decode.launches = fused_cbam.launches = 0
+            got = serve(imported, s, pts)
+            torch.cuda.synchronize()
+            launches = (peak_decode.launches, fused_cbam.launches)
+        finally:
+            layers.FUSED_CBAM = False
+        for field in ('heatmaps', 'keypoints_2d', 'R', 'trans', 'quat'):
+            if not torch.equal(getattr(got, field), getattr(want, field)):
+                raise AssertionError(f'reference checkpoint, FUSED_CBAM '
+                                     f'{fused}: {field} differs from r5')
+        if launches != ((1, 29) if fused else (1, 0)):
+            raise AssertionError(f'reference checkpoint, FUSED_CBAM {fused}:'
+                                 f' K1/K2 launches {launches}')
+        log(f'reference checkpoint 18, FUSED_CBAM {fused}: {len(sd)} torch '
+            f'keys through torch.save/load_torch_checkpoint/'
+            f'import_reference_hrnet; 64 frames: heatmaps, keypoints and '
+            f'poses torch.equal to r5; K1 launches {launches[0]}, K2 '
+            f'{launches[1]}')
+    log(f'reference checkpoint: phase {time.perf_counter() - t0:.1f} s')
+    return launches
+
+
+def tooling_render(pts, faces) -> None:
+    """19a: rasterize_color on the card against the CPU, 8 poses of the
+    icosphere at 128 px with vertex colours: masks equal off triangle
+    edges, depth 1e-5 relative, colour 1e-5 off edge pixels."""
+    from esa_pose_estimation_tpu_torch.cli import train_linemod as tl
+    from esa_pose_estimation_tpu_torch.core.camera import quat_to_rotmat
+    from esa_pose_estimation_tpu_torch.utils import render
+    from esa_pose_estimation_tpu_torch.utils.seeding import generator
+    d = tl.draw_synthetic_poses(generator(DEVICE, SEED, 21), 8, DEVICE)
+    R = quat_to_rotmat(d['quat'])
+    t = torch.zeros((8, 3), device=DEVICE)
+    t[:, 2] = d['tz']
+    K = tl.synthetic_k(LM_SIZE, DEVICE)
+    vc = torch.rand(pts.shape, generator=generator(DEVICE, SEED, 22),
+                    device=DEVICE)
+    light = (0.3, -0.2, 1.0)
+    cc, dc, mc = (a.cpu() for a in render.rasterize_color(
+        pts, faces, R, t, K, LM_SIZE, LM_SIZE, vc, light_dir=light))
+    ch, dh, mh = render.rasterize_color(
+        pts.cpu(), faces.cpu(), R.cpu(), t.cpu(), K.cpu(), LM_SIZE, LM_SIZE,
+        vc.cpu(), light_dir=light)
+    bad = (mc != mh) | ((cc - ch).abs().amax(-1) > 1e-5)
+    for i in torch.nonzero(bad.flatten(1).any(1)).flatten().tolist():
+        dist = edge_distance(pts, faces, R[i], t[i], K, LM_SIZE, LM_SIZE)
+        if not bool((dist[bad[i]] < EDGE_PX2).all()):
+            raise AssertionError(f'rasterize_color pose {i}: a pixel off the '
+                                 f'triangle edges differs card vs CPU')
+    both = mc & mh
+    rel = float(((dc[both] - dh[both]).abs() / dh[both]).max())
+    if not rel <= 1e-5:
+        raise AssertionError(f'rasterize_color: depth differs by {rel}')
+    log(f'tooling 19a rasterize_color card vs CPU, 8 poses at 128 px: '
+        f'{int(bad.sum())} of {int((mc | mh).sum())} covered pixels differ '
+        f'(all within {EDGE_PX2} px^2 of a triangle edge), depth max rel '
+        f'err {rel:.3g}')
+
+
+def write_linemod_layout(root: str, job, verts) -> None:
+    """The fallback's renders as the LINEMOD layouts db_builder reads: per
+    frame ``renders/cat/{k}.jpg`` and ``{k}_RT.pkl``, and the real layout
+    ``cat/JPEGImages``, ``cat/mask``, ``cat/data/rot|tra`` (cm)."""
+    import os
+    import pickle
+
+    import numpy as np
+    from PIL import Image
+
+    from esa_pose_estimation_tpu_torch.utils import render_driver as rd
+    poses = np.load(job.poses_path)
+    for sub in ('JPEGImages', 'mask', 'data'):
+        os.makedirs(f'{root}/cat/{sub}', exist_ok=True)
+    for k, pose in enumerate(poses):
+        RT = np.concatenate([rd.euler_to_rotmat(pose[:3]),
+                             pose[3:6, None].astype(np.float32)], 1)
+        img = Image.open(f'{job.output_dir}/{k}.png').convert('RGB')
+        img.save(f'{job.output_dir}/{k}.jpg')
+        img.save(f'{root}/cat/JPEGImages/{k:06d}.jpg')
+        Image.open(f'{job.output_dir}/{k}_depth.png').save(
+            f'{root}/cat/mask/{k:04d}.png')
+        with open(f'{job.output_dir}/{k}_RT.pkl', 'wb') as f:
+            pickle.dump({'RT': RT}, f)
+        with open(f'{root}/cat/data/rot{k}.rot', 'w') as f:
+            f.write('3 3\n' + '\n'.join(' '.join(f'{v:.9f}' for v in row)
+                                        for row in RT[:, :3]))
+        with open(f'{root}/cat/data/tra{k}.tra', 'w') as f:
+            f.write('1 3\n' + ' '.join(f'{v:.9f}' for v in RT[:, 3] * 100))
+
+
+LM_DB_FRAMES, LM_DB_FUSE = 16, 304
+
+
+def tooling_linemod_dbs(root: str) -> int:
+    """19b: render_driver's fallback writes 16 frames on the card;
+    db_builder makes the real, render and fuse DBs (304 composites) and
+    the split; cli.train_linemod --pkl-dir trains one epoch at batch 16
+    in heatmap mode from them: finite loss, K1 in its eval.  Returns K1's
+    launches in the command."""
+    import numpy as np
+
+    from esa_pose_estimation_tpu_torch.cli import train_linemod as tl
+    from esa_pose_estimation_tpu_torch.data import db_builder as dbb
+    from esa_pose_estimation_tpu_torch.data.linemod import LineModModelDB
+    from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
+        peak_decode,
+    )
+    from esa_pose_estimation_tpu_torch.utils import render_driver as rd
+    t0 = time.perf_counter()
+    verts, faces = tl.make_icosphere()
+    np.savez(f'{root}/cat.npz', vertices=verts, faces=faces)
+    job = rd.ExternalRenderer(
+        class_type='cat', obj_path=f'{root}/cat.npz',
+        output_dir=f'{root}/renders/cat', poses_path=f'{root}/poses/cat.npy',
+        bg_imgs_path=f'{root}/bg.npy', n_poses=LM_DB_FRAMES, seed=SEED % 997,
+        min_dist=0.5, max_dist=0.9, device=DEVICE)
+    n = job.run()
+    t_render = time.perf_counter() - t0
+    if n != LM_DB_FRAMES:
+        raise AssertionError(f'render_driver fallback: {n} frames')
+    write_linemod_layout(root, job, verts)
+    db = LineModModelDB()
+    db.register('cat', vertices=verts)
+    real = dbb.build_real_db(root, 'cat', db, n_kp=LM_KP)
+    render = dbb.build_render_db(root, 'cat', db, n_kp=LM_KP)
+    dbb.compose_fuse_set(root, {'cat': 'renders/cat'}, LM_DB_FUSE,
+                         seed=SEED % 991)
+    fuse = dbb.build_fuse_db(root, 'cat', db, n_kp=LM_KP)
+    train, test = dbb.build_split_pkls(real, root, 'cat')
+    t_db = time.perf_counter() - t0 - t_render
+    n_train = len(train) + len(render) + len(fuse)
+    peak_decode.launches = 0
+    t1 = time.perf_counter()
+    wd = f'{root}/run'
+    res = tl.main(['--workdir', wd, '--mode', 'heatmap', '--epochs', '1',
+                   '--batch-size', '16', '--num-keypoints', str(LM_KP),
+                   '--pkl-dir', root, '--image-root', root,
+                   '--device', DEVICE])
+    torch.cuda.synchronize()
+    launches = peak_decode.launches
+    rows = Path(wd, 'log_cat.txt').read_text().strip().split('\n')[1:]
+    loss = float(rows[0].split('\t')[2])
+    with open(f'{wd}/events.jsonl') as f:
+        steps = [e for e in map(json.loads, f)
+                 if e['event'] == 'epoch'][0]['steps']
+    if not (math.isfinite(loss) and launches > 0 and steps >= 20):
+        raise AssertionError(f'linemod DBs: loss {loss}, {steps} steps, K1 '
+                             f'launches {launches}')
+    log(f'tooling 19b render_driver fallback on the card: {n} frames of '
+        f'640x480 in {t_render:.1f} s; db_builder: {len(real)} real, '
+        f'{len(render)} render, {len(fuse)} fuse records ({LM_DB_FUSE} '
+        f'composites), split {len(train)}/{len(test)}, {t_db:.1f} s; '
+        f'cli.train_linemod --pkl-dir heatmap 1 epoch at batch 16: '
+        f'{steps} steps over {n_train} records, loss {loss:.5f}, test '
+        f'triple {json.dumps(res)}, K1 launches {launches}, '
+        f'{time.perf_counter() - t1:.1f} s')
+    return launches
+
+
+def _card_vs_cpu(label: str, fn, args, atol: float) -> float:
+    """``fn`` on the card and on the CPU on the same inputs: every output
+    within ``atol``.  Returns the largest difference."""
+    from torch.utils._pytree import tree_leaves, tree_map
+    got = tree_leaves(fn(*tree_map(
+        lambda a: a.to(DEVICE) if isinstance(a, torch.Tensor) else a,
+        args)))
+    want = tree_leaves(fn(*args))
+    err = 0.0
+    for g, w in zip(got, want):
+        g = g.cpu()
+        if g.dtype == torch.bool or not g.is_floating_point():
+            if not torch.equal(g, w):
+                raise AssertionError(f'{label}: card differs from the CPU')
+            continue
+        err = max(err, float((g - w).abs().max()))
+    if not err <= atol:
+        raise AssertionError(f'{label}: card vs CPU {err} > {atol}')
+    return err
+
+
+def tooling_ops() -> None:
+    """19c: pose_nms, transforms.crop, vgg16_bn features and the instance
+    augmentations on the card against the CPU, at the CPU tests'
+    tolerances (tests/test_torch_tools.py), except the resample of
+    crop_resize_instance_v1 (7.8e-3: see there)."""
+    from esa_pose_estimation_tpu_torch.data import augment
+    from esa_pose_estimation_tpu_torch.models import vgg
+    from esa_pose_estimation_tpu_torch.ops import pose_nms, transforms
+    g = torch.Generator().manual_seed(SEED)
+    centers = torch.rand((3, 1, 17, 2), generator=g) * 350 + 50
+    poses = (centers + torch.randn((3, 5, 17, 2), generator=g) * 1.5
+             ).reshape(15, 17, 2)
+    poses = torch.cat([poses, torch.rand((5, 17, 2), generator=g) * 500])
+    scores = torch.rand((20, 17), generator=g) * 0.95 + 0.05
+    ref = pose_nms.ref_dists_from_bboxes(torch.cat([poses.amin(1),
+                                                    poses.amax(1)], -1))
+    errs = {'pose_nms': _card_vs_cpu('pose_nms', pose_nms.pose_nms,
+                                     (poses, scores, ref), 1e-4)}
+    # the CPU test's sizes: its tolerance assumes sample positions below
+    # 100 px, where f32 rounds them to 1e-5 px (noise images change by up
+    # to 255 levels a pixel)
+    imgs = torch.rand((8, 60, 80), generator=g) * 255
+    c = torch.rand((8, 2), generator=g) * torch.tensor([20.0, 15.0]) + 30
+    errs['transforms.crop'] = _card_vs_cpu(
+        'transforms.crop', lambda a, b: transforms.crop(a, b, 0.3, (48, 40),
+                                                        20.0),
+        (imgs, c), 1e-2)
+    net = vgg.VGGFeatures('vgg16', batch_norm=True).init_weights(
+        torch.Generator().manual_seed(1)).eval()
+    x = torch.randn((4, 3, 64, 64), generator=g)
+    with torch.no_grad():
+        want = net(x)
+        got = net.to(DEVICE)(x.to(DEVICE))
+    errs['vgg16_bn'] = max(float((a.cpu() - b).abs().max())
+                           for a, b in zip(got, want))
+    if not all(torch.allclose(a.cpu(), b, atol=1e-4, rtol=1e-4)
+               for a, b in zip(got, want)):
+        raise AssertionError(f'vgg16_bn: card vs CPU {errs["vgg16_bn"]}')
+    images = torch.rand((16, 128, 128, 3), generator=g) * 255
+    masks = torch.zeros((16, 128, 128))
+    for i in range(15):
+        y0, x0 = (int(v) for v in torch.randint(4, 60, (2,), generator=g))
+        masks[i, y0:y0 + 40, x0:x0 + 50] = 1.0
+    kp = torch.rand((16, LM_KP, 2), generator=g) * 128
+    d1 = augment.draw_crop_resize_v1(g, masks, 96, 96)
+    ranges = augment.instance_window_range(masks, 96, 112)
+    d2 = augment.draw_window_begins(g, ranges)
+    blur = augment.draw_blur(g, 16)
+    # the card contracts a sample coordinate's (y + 0.5) * r - 0.5 into an
+    # FMA and the CPU does not: 2 ulps of a 128 px coordinate times noise
+    # gradients of up to 255 levels a pixel
+    resample_atol = 2 * torch.finfo(torch.float32).eps * 128 * 255
+    errs['crop_resize_instance_v1'] = _card_vs_cpu(
+        'crop_resize_instance_v1',
+        lambda *a: augment.crop_resize_instance_v1(*a, 96, 96),
+        (images, masks, kp, d1), resample_atol)
+    errs['crop_or_padding_to_fixed_size_instance'] = _card_vs_cpu(
+        'crop_or_padding_to_fixed_size_instance',
+        lambda *a: augment.crop_or_padding_to_fixed_size_instance(
+            *a, 96, 112), (images, masks, kp, d2['hbeg'], d2['wbeg']), 1e-4)
+    errs['crop_or_padding'] = _card_vs_cpu(
+        'crop_or_padding', lambda *a: augment.crop_or_padding(*a, 1.25, 0.75),
+        (images, masks, kp), 1e-4)
+    errs['instance_window_range'] = _card_vs_cpu(
+        'instance_window_range',
+        lambda m: augment.instance_window_range(m, 96, 112), (masks,), 0.0)
+    errs['random_blur'] = _card_vs_cpu(
+        'random_blur', augment.random_blur, (images[..., 0], blur), 1e-3)
+    log(f'tooling 19c card vs CPU, max abs err: '
+        f'{json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()})}')
+
+
+def tooling_timer_probe() -> None:
+    """19d: a profiling.Timer span of a VGG16Convs forward at batch 32
+    lasts at least the CUDA-event time of the same call (events recorded
+    inside the span); device_probe reports the card count within its
+    deadline."""
+    from esa_pose_estimation_tpu_torch.models import vgg
+    from esa_pose_estimation_tpu_torch.obs import profiling
+    from esa_pose_estimation_tpu_torch.utils import device_probe
+    net = vgg.VGG16Convs().init_weights(
+        torch.Generator(device=DEVICE).manual_seed(0)).to(DEVICE).eval()
+    x = torch.randn((32, 3, 224, 224), device=DEVICE)
+    timer = profiling.Timer()
+    rows = []
+    with torch.no_grad():
+        net(x)
+        for _ in range(3):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with timer.span() as s:
+                start.record()
+                s.result = net(x)
+                end.record()
+            rows.append((timer.times[-1] * 1e3, start.elapsed_time(end)))
+    if not all(span >= ev for span, ev in rows):
+        raise AssertionError(f'profiling.Timer: spans shorter than the '
+                             f'CUDA-event times {rows}')
+    t0 = time.monotonic()
+    n = device_probe.cuda_device_count(timeout_s=120.0)
+    secs = time.monotonic() - t0
+    if n != torch.cuda.device_count():
+        raise AssertionError(f'device_probe: {n} devices, torch sees '
+                             f'{torch.cuda.device_count()}')
+    log(f'tooling 19d profiling.Timer span vs CUDA events (ms) of a '
+        f'VGG16Convs forward at batch 32, 224 px: '
+        f'{[(round(a, 3), round(b, 3)) for a, b in rows]}; '
+        f'device_probe.cuda_device_count -> {n} in {secs:.1f} s '
+        f'(deadline 120 s)')
+
+
+def phase_tooling() -> int:
+    """19: the tooling on the card.  Returns K1's launches in 19b's
+    cli.train_linemod."""
+    import tempfile
+    t0 = time.perf_counter()
+    _, pts, faces, _ = linemod_object()
+    tooling_render(pts, faces)
+    with tempfile.TemporaryDirectory() as root:
+        launches = tooling_linemod_dbs(root)
+    tooling_ops()
+    tooling_timer_probe()
+    log(f'tooling: phase {time.perf_counter() - t0:.1f} s')
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_device()
@@ -2403,6 +2891,12 @@ def main() -> None:
     k1['launches_shard_train_eval'] = phase_shards(pts, rates)
     phase_group()
     k1['launches_linemod_eval'] = phase_linemod()
+    (k1['launches_rehearsal_train_eval'],
+     k1['launches_rehearsal_evaluate']) = phase_rehearsal()
+    (k1['launches_imported_checkpoint'],
+     k2['launches_imported_checkpoint']) = phase_reference_checkpoint(
+        model, frames, pts)
+    k1['launches_linemod_db_eval'] = phase_tooling()
     log(f'total: {time.perf_counter() - t_start:.1f} s')
     # graph_ms / plain_graph_ms (K1 and K2): the same calls replayed from a
     # CUDA graph, beside ms / plain_ms by eager calls as in earlier PRs;
@@ -2413,12 +2907,20 @@ def main() -> None:
     # frames); launches_shard_train_eval (K1): in the in-train evaluate of
     # cli.train --train-shard in phase 14 (four batches of 32 frames);
     # launches_linemod_eval (K1): in the heatmap-mode evals of
-    # cli.train_linemod in phase 16c (two epochs of four batches of 16)
+    # cli.train_linemod in phase 16c (two epochs of four batches of 16);
+    # launches_rehearsal_train_eval / launches_rehearsal_evaluate (K1): in
+    # the in-train evals and in cli.evaluate of phase 17's
+    # cli.dress_rehearsal; launches_imported_checkpoint (K1 and K2): in one
+    # FUSED_CBAM serving call of phase 18's imported reference checkpoint;
+    # launches_linemod_db_eval (K1): in phase 19b's cli.train_linemod from
+    # the DBs db_builder made
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
             'graph_ms', 'plain_graph_ms', 'launches_two_stage',
             'launches_train_eval', 'launches_two_stage_eval',
-            'launches_shard_train_eval', 'launches_linemod_eval')
+            'launches_shard_train_eval', 'launches_linemod_eval',
+            'launches_rehearsal_train_eval', 'launches_rehearsal_evaluate',
+            'launches_imported_checkpoint', 'launches_linemod_db_eval')
     print(json.dumps({'kernels': [{k: rec[k] for k in keys if k in rec}
                                   for rec in (k1, k2, k3)]}))
     print(json.dumps({'ok': True, 'device': {

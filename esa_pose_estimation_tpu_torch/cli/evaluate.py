@@ -58,10 +58,14 @@ def load_weights(args, dev):
     return model, args.checkpoint
 
 
+N_PANELS = 4     # the frames an EvalCache keeps on the host by default
+
+
 def evaluate(model, eval_batches, points_3d,
              generator: torch.Generator | None = None,
              crop_size: int = 128, norm_mean: float = 0.449,
-             norm_std: float = 0.229) -> dict:
+             norm_std: float = 0.229, panel_dir: str | None = None
+             ) -> dict:
     """SPEED-score evaluation loop (demo.py:79-369 parity, batched).
 
     ``eval_batches`` is an :class:`EvalCache` (crops resident on the
@@ -69,8 +73,13 @@ def evaluate(model, eval_batches, points_3d,
     host batches (cropped and inferred every call).  ``generator`` draws
     the RANSAC samples of every batch in turn.  Frames whose pose is
     non-finite are counted under ``nonfinite`` and left out of the means;
-    if none is finite, the scores are ``inf``.  Eval image panels wait for
-    the port of the JAX package's ``obs/visual.py``.
+    if none is finite, the scores are ``inf``.
+
+    ``panel_dir``: the first ``N_PANELS`` frames of the first batch are
+    drawn there as PNGs (``obs/visual.save_eval_panel``: frame, predicted
+    and true keypoints, box, heatmap composite; needs matplotlib), and the
+    result names the directory under ``panel_dir``.  An ``EvalCache``
+    keeps those frames and boxes on the host.
     """
     cache = eval_batches if isinstance(eval_batches, EvalCache) else None
     dev = next(model.parameters()).device
@@ -78,7 +87,7 @@ def evaluate(model, eval_batches, points_3d,
     score_r = AverageMeter()
     pix_err = AverageMeter()
     n_bad = 0
-    for batch in (cache.batches if cache else eval_batches):
+    for i, batch in enumerate(cache.batches if cache else eval_batches):
         if cache:
             out = cache.infer(model, batch, generator)
         else:
@@ -105,15 +114,38 @@ def evaluate(model, eval_batches, points_3d,
             sel = out.selected.cpu().numpy()
             if sel.any():
                 pix_err.update(float(err[sel].mean()), n=int(sel.sum()))
+        if i == 0 and panel_dir:
+            _save_panels(panel_dir, batch, out, st + sr)
     if score_t.count == 0:
         # every frame went non-finite: inf, not the meters' initial 0.0,
         # which would read as a perfect score
         score_t.avg = score_r.avg = float('inf')
         if pix_err.count == 0:
             pix_err.avg = float('inf')
-    return {'score_t': score_t.avg, 'score_r': score_r.avg,
-            'speed': score_t.avg + score_r.avg, 'pix_err': pix_err.avg,
-            'nonfinite': n_bad}
+    result = {'score_t': score_t.avg, 'score_r': score_r.avg,
+              'speed': score_t.avg + score_r.avg, 'pix_err': pix_err.avg,
+              'nonfinite': n_bad}
+    if panel_dir:
+        result['panel_dir'] = panel_dir
+    return result
+
+
+def _save_panels(panel_dir: str, batch: dict, out,
+                 speed: np.ndarray) -> None:
+    """``frame{j:02d}.png`` for the first ``N_PANELS`` frames of a batch."""
+    from esa_pose_estimation_tpu_torch.obs.visual import save_eval_panel
+    os.makedirs(panel_dir, exist_ok=True)
+    frames = np.asarray(batch['frame'])
+    boxes = np.asarray(batch['bbox'])
+    kp_pred = out.keypoints_2d.cpu().numpy()
+    hms = out.heatmaps.float().cpu().numpy()
+    kp_gt = batch.get('keypoints_2d')
+    for j in range(min(N_PANELS, frames.shape[0])):
+        save_eval_panel(os.path.join(panel_dir, f'frame{j:02d}.png'),
+                        frames[j], kp_pred=kp_pred[j],
+                        kp_gt=None if kp_gt is None else kp_gt[j],
+                        heatmaps=hms[j], bbox=boxes[j],
+                        title=f'speed={speed[j]:.4f}')
 
 
 def _parser() -> argparse.ArgumentParser:

@@ -37,9 +37,12 @@ the BatchNorm statistics are taken over the global batch
 (``models/layers.BatchNorm``).  Process i > 0 writes its logs and
 checkpoints under ``<workdir>/proc{i}``: the primary's are the run's.
 
+Each held-out eval draws the first four frames of its first batch as
+PNG panels under ``<workdir>/panels/epoch<NNN>/`` (``obs/visual.py``,
+which needs matplotlib); ``--no-panels`` skips them.
+
 Runs on the card (``--device cuda``, the default; without one it raises)
-or on the CPU with ``--device cpu``.  Not offered here: eval image panels
-(``--no-panels``; ``obs/visual.py``, ROADMAP item 15).
+or on the CPU with ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -288,9 +291,12 @@ def train(args) -> dict:
                 events.log('eval_cache', frames=eval_cache.n_frames,
                            **eval_cache.timing)
             model.eval()
-            result = evaluate(model, eval_cache, points_3d,
-                              generator(dev, 1234, 777), cfg.crop_size,
-                              norm_mean=norm_mean)
+            result = evaluate(
+                model, eval_cache, points_3d, generator(dev, 1234, 777),
+                cfg.crop_size, norm_mean=norm_mean,
+                panel_dir=(os.path.join(workdir, 'panels',
+                                        f'epoch{epoch + 1:03d}')
+                           if args.eval_panels else None))
             best = ckpt.save_rolling(st, epoch, score_tran=result['score_t'],
                                      score_rotate=result['score_r'],
                                      best=best, save_last=False)
@@ -318,10 +324,7 @@ def train(args) -> dict:
 
 
 def _parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(
-        description=__doc__.split('\n\n')[0],
-        epilog='Not offered yet: --no-panels (eval panels wait for '
-               'obs/visual.py, ROADMAP item 15).')
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--workdir', default='runs/esa')
     ap.add_argument('--train-pkl', default=None)
     ap.add_argument('--test-pkl', default=None)
@@ -354,6 +357,9 @@ def _parser() -> argparse.ArgumentParser:
                     help='comma-separated epoch boundaries of the 10x LR '
                          'drops (default: the reference 80,100,170 scaled '
                          'to --epochs)')
+    ap.add_argument('--no-panels', dest='eval_panels',
+                    action='store_false',
+                    help='skip the PNG panels of each held-out eval')
     ap.add_argument('--tiny', action='store_true',
                     help='the tiny model topology, for smoke tests')
     ap.add_argument('--log-every', type=int, default=10,

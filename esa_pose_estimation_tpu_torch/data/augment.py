@@ -14,8 +14,12 @@ JAX package's ``data/augment.py`` that keypoint and LINEMOD training use).
   (augmentation.py:45-315, linemod_dataset.py:256-293):
   :func:`random_occlusion`, :func:`random_rotate`,
   :func:`random_crop_resize_v2` (over :func:`crop_resize_instance_v2`,
-  :func:`compute_resize_range` and :func:`window_shift`) and
-  :func:`random_flip`, each batched, keypoints moved alongside.
+  :func:`compute_resize_range` and :func:`window_shift`),
+  :func:`random_flip`, :func:`random_blur`, the fixed-size window family
+  (:func:`crop_or_padding_to_fixed_size` and its ``_instance`` form over
+  :func:`fixed_size_offsets` and :func:`instance_window_range`),
+  :func:`crop_or_padding` and :func:`crop_resize_instance_v1`, each
+  batched, keypoints moved alongside.
 
 Every random transform is split in two: ``draw_*(generator, ...)`` draws
 its random numbers from an explicit ``torch.Generator`` into a dict, and
@@ -313,6 +317,29 @@ def random_flip(images: torch.Tensor, masks: torch.Tensor,
     return images, masks, torch.where(do[:, None, None], kp_flip, keypoints)
 
 
+def draw_blur(generator: torch.Generator, batch: int, prob: float = 0.5,
+              device=None) -> dict:
+    """The coin of :func:`random_blur` (p ``prob``)."""
+    return {'blur': torch.rand((batch,), generator=generator,
+                               device=device) < prob}
+
+
+def random_blur(images: torch.Tensor, draws: dict, sigma: float = 1.2,
+                kernel: int = 5) -> torch.Tensor:
+    """Per-sample separable Gaussian blur where the coin says so
+    (augmentation.py blur_image), zero padding: images (B, H, W)."""
+    half = kernel // 2
+    x = torch.arange(kernel, dtype=torch.float32, device=images.device) \
+        - half
+    g = torch.exp(-0.5 * (x / sigma) ** 2)
+    g = g / g.sum()
+    arr = images[:, None].to(torch.float32)
+    blurred = F.conv2d(arr, g.reshape(1, 1, kernel, 1), padding=(half, 0))
+    blurred = F.conv2d(blurred, g.reshape(1, 1, 1, kernel),
+                       padding=(0, half))
+    return torch.where(draws['blur'][:, None, None], blurred[:, 0], images)
+
+
 def _tent_matrix(coords: torch.Tensor, in_size: int) -> torch.Tensor:
     """cv2 INTER_LINEAR weights (B, out) -> (B, out, in); taps outside
     [0, in) have no column, i.e. zero padding."""
@@ -354,6 +381,177 @@ def window_shift(images: torch.Tensor, offsets: torch.Tensor, out_h: int,
     return _apply_separable(images,
                             _nearest_matrix(oy, (oy >= 0) & (oy < h), h),
                             _nearest_matrix(ox, (ox >= 0) & (ox < w), w))
+
+
+def fixed_size_offsets(in_h: int, in_w: int, out_h: int, out_w: int,
+                       hbeg: torch.Tensor, wbeg: torch.Tensor
+                       ) -> torch.Tensor:
+    """The crop_or_padding_to_fixed_size offset rule (augmentation.py:
+    160-185) for fixed sizes: crop at the begin where the output is
+    smaller, centre-pad (begin ignored) where it is not.  hbeg, wbeg (B,)
+    int.  -> (B, 2) int32 [dy, dx]."""
+    dy = (torch.full_like(hbeg, -((out_h - in_h) // 2)) if out_h >= in_h
+          else hbeg)
+    dx = (torch.full_like(wbeg, -((out_w - in_w) // 2)) if out_w >= in_w
+          else wbeg)
+    return torch.stack([dy, dx], dim=-1).to(torch.int32)
+
+
+def crop_or_padding_to_fixed_size(images: torch.Tensor, masks: torch.Tensor,
+                                  hbeg: torch.Tensor, wbeg: torch.Tensor,
+                                  out_h: int, out_w: int
+                                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """augmentation.py:160-185, batched: hbeg/wbeg (B,) crop begins
+    (ignored on a padded axis)."""
+    off = fixed_size_offsets(images.shape[1], images.shape[2], out_h, out_w,
+                             hbeg, wbeg)
+    return (window_shift(images, off, out_h, out_w),
+            window_shift(masks, off, out_h, out_w))
+
+
+def crop_or_padding_to_fixed_size_instance(
+        images: torch.Tensor, masks: torch.Tensor, keypoints: torch.Tensor,
+        hbeg: torch.Tensor, wbeg: torch.Tensor, out_h: int, out_w: int
+        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """augmentation.py:118-158: the same window, keypoints (B, K, 2) moved
+    by it (kp - begin + pad begin, :140-153)."""
+    off = fixed_size_offsets(images.shape[1], images.shape[2], out_h, out_w,
+                             hbeg, wbeg)
+    kp = keypoints - off.flip(-1)[:, None, :].to(keypoints.dtype)
+    return (window_shift(images, off, out_h, out_w),
+            window_shift(masks, off, out_h, out_w), kp)
+
+
+def instance_window_range(masks: torch.Tensor, out_h, out_w,
+                          overlap_ratio: float = 0.5
+                          ) -> tuple[torch.Tensor, ...]:
+    """The bounds of the sampled window of augmentation.py:118-134: the
+    crop keeps at least ``overlap_ratio`` of the foreground box.  masks
+    (B, H, W); out_h/out_w ints or (B,) tensors.  Returns (hrmin, hrmax,
+    wrmin, wrmax), each (B,) int32, max at least min + 1 so that a draw
+    in [min, max) is defined for an empty mask or a padded axis."""
+    b, h, w = masks.shape
+    dev = masks.device
+    fg = masks > 0
+    ys = torch.arange(h, dtype=torch.int32, device=dev)[None, :]
+    xs = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+    any_y = fg.any(dim=2)
+    any_x = fg.any(dim=1)
+    big = 1 << 30
+    hmin = torch.where(any_y, ys, big).amin(dim=1)
+    hmax = torch.where(any_y, ys, -big).amax(dim=1)
+    wmin = torch.where(any_x, xs, big).amin(dim=1)
+    wmax = torch.where(any_x, xs, -big).amax(dim=1)
+    fh = (hmax - hmin).to(torch.float32)
+    fw = (wmax - wmin).to(torch.float32)
+    lim_h = torch.as_tensor(h - out_h, device=dev)
+    lim_w = torch.as_tensor(w - out_w, device=dev)
+    hrmax = torch.minimum(hmin + overlap_ratio * fh, lim_h).to(torch.int32)
+    hrmin = torch.clamp(hmin + overlap_ratio * fh - out_h, min=0).to(
+        torch.int32)
+    wrmax = torch.minimum(wmin + overlap_ratio * fw, lim_w).to(torch.int32)
+    wrmin = torch.clamp(wmin + overlap_ratio * fw - out_w, min=0).to(
+        torch.int32)
+    return (hrmin, torch.maximum(hrmax, hrmin + 1), wrmin,
+            torch.maximum(wrmax, wrmin + 1))
+
+
+def draw_window_begins(generator: torch.Generator,
+                       ranges: tuple[torch.Tensor, ...]) -> dict:
+    """Window begins uniform in [min, max) of :func:`instance_window_range`
+    (the reference's ``np.random.randint``)."""
+    hrmin, hrmax, wrmin, wrmax = ranges
+    u = torch.rand((2,) + hrmin.shape, generator=generator,
+                   device=hrmin.device)
+    return {'hbeg': (hrmin + torch.floor(u[0] * (hrmax - hrmin))
+                     ).to(torch.int32),
+            'wbeg': (wrmin + torch.floor(u[1] * (wrmax - wrmin))
+                     ).to(torch.int32)}
+
+
+def crop_or_padding(images: torch.Tensor, masks: torch.Tensor,
+                    keypoints: torch.Tensor, hratio: float, wratio: float
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """augmentation.py:75-116 ``crop_or_padding``: a ratio below 1
+    centre-crops, above 1 centre-pads; the output is (int(hratio * H),
+    int(wratio * W)).  The reference moves the keypoints by the whole size
+    change (hd, wd), not by the centre begin (:113-114); kept as it is."""
+    b, h, w = images.shape[0], images.shape[1], images.shape[2]
+    hd = int(hratio * h - h)
+    wd = int(wratio * w - w)
+    # a crop begins -hd//2 inside the source, a pad hd//2 into the output
+    dy = -(hd // 2) if hd > 0 else (-hd) // 2
+    dx = -(wd // 2) if wd > 0 else (-wd) // 2
+    off = torch.tensor([[dy, dx]], dtype=torch.int32,
+                       device=images.device).expand(b, 2)
+    kp = keypoints - torch.tensor([wd, hd], dtype=keypoints.dtype,
+                                  device=keypoints.device)
+    return (window_shift(images, off, h + hd, w + wd),
+            window_shift(masks, off, h + hd, w + wd), kp)
+
+
+def draw_crop_resize_v1(generator: torch.Generator, masks: torch.Tensor,
+                        out_h: int, out_w: int, ratio_min: float = 0.8,
+                        ratio_max: float = 1.2,
+                        overlap_ratio: float = 0.5) -> dict:
+    """The draws of :func:`crop_resize_instance_v1` (augmentation.py:
+    250-279): a resize ratio uniform in [ratio_min, ratio_max), then
+    window begins that keep the instance for the window it gives."""
+    b = masks.shape[0]
+    r = _uniform(generator, (b,), ratio_min, ratio_max, masks.device)
+    th = torch.trunc(out_h * r).to(torch.int32)
+    tw = torch.trunc(out_w * r).to(torch.int32)
+    begins = draw_window_begins(
+        generator, instance_window_range(masks, th, tw, overlap_ratio))
+    return {'ratio': r, **begins}
+
+
+def crop_resize_instance_v1(images: torch.Tensor, masks: torch.Tensor,
+                            keypoints: torch.Tensor, draws: dict, out_h: int,
+                            out_w: int
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """augmentation.py:250-279: crop (or centre-pad) a window of
+    (int(out_h * r), int(out_w * r)) at (hbeg, wbeg), then resize it to
+    (out_h, out_w), in one separable resample per sample.  Image: the cv2
+    INTER_LINEAR half-pixel rule on the window, window pixels off the
+    source zero (the pad of :143-156), the resize clamped to the window's
+    edges; mask: the INTER_NEAREST floor rule; keypoints: (kp - begin +
+    pad begin) / r (:140-153, 276-277).  ``draws``: ``ratio``, ``hbeg``,
+    ``wbeg`` (B,) (:func:`draw_crop_resize_v1`)."""
+    resize_ratio, hbeg, wbeg = draws['ratio'], draws['hbeg'], draws['wbeg']
+    h, w = images.shape[1], images.shape[2]
+    dev = images.device
+    th = torch.trunc(out_h * resize_ratio).to(torch.int32)
+    tw = torch.trunc(out_w * resize_ratio).to(torch.int32)
+    dy = torch.where(th >= h, -torch.div(th - h, 2, rounding_mode='floor'),
+                     hbeg)
+    dx = torch.where(tw >= w, -torch.div(tw - w, 2, rounding_mode='floor'),
+                     wbeg)
+    off = torch.stack([dy, dx], dim=-1).to(torch.int32)
+
+    thf = th.to(torch.float32)[:, None]
+    twf = tw.to(torch.float32)[:, None]
+    gy = torch.arange(out_h, dtype=torch.float32, device=dev)[None, :]
+    gx = torch.arange(out_w, dtype=torch.float32, device=dev)[None, :]
+    wy = torch.minimum(torch.clamp((gy + 0.5) * (thf / out_h) - 0.5,
+                                   min=0.0), thf - 1.0)
+    wx = torch.minimum(torch.clamp((gx + 0.5) * (twf / out_w) - 0.5,
+                                   min=0.0), twf - 1.0)
+    sy = wy + off[:, 0:1].to(torch.float32)
+    sx = wx + off[:, 1:2].to(torch.float32)
+    img = _apply_separable(images, _tent_matrix(sy, h), _tent_matrix(sx, w))
+
+    ny = torch.floor(gy * (thf / out_h)).to(torch.int64)
+    nx = torch.floor(gx * (twf / out_w)).to(torch.int64)
+    ny = torch.minimum(ny, th[:, None].to(torch.int64) - 1) + off[:, 0:1]
+    nx = torch.minimum(nx, tw[:, None].to(torch.int64) - 1) + off[:, 1:2]
+    msk = _apply_separable(masks,
+                           _nearest_matrix(ny, (ny >= 0) & (ny < h), h),
+                           _nearest_matrix(nx, (nx >= 0) & (nx < w), w))
+    r = resize_ratio[:, None, None].to(keypoints.dtype)
+    kp = (keypoints - off.flip(-1)[:, None, :].to(keypoints.dtype)) / r
+    return img, msk, kp
 
 
 def fixed_size_offsets_dynamic(in_h: torch.Tensor, in_w: torch.Tensor,

@@ -20,19 +20,13 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from esa_pose_estimation_tpu_torch.obs.visual import bb8_corners
+
 
 LINEMOD_CLASSES = ['ape', 'benchvise', 'bowl', 'cam', 'can', 'cat', 'cup',
                    'driller', 'duck', 'eggbox', 'glue', 'holepuncher',
                    'iron', 'lamp', 'phone']
 SYMMETRIC_CLASSES = {'eggbox', 'glue', 'bowl', 'cup'}
-
-
-def bb8_corners(points_3d: np.ndarray) -> np.ndarray:
-    """Axis-aligned bounding-cuboid corners of a point set -> (8, 3)."""
-    mn = points_3d.min(axis=0)
-    mx = points_3d.max(axis=0)
-    return np.array([[x, y, z] for x in (mn[0], mx[0])
-                     for y in (mn[1], mx[1]) for z in (mn[2], mx[2])])
 
 
 def load_ply_vertices(path: str) -> np.ndarray:

@@ -191,10 +191,12 @@ def test_only_the_primary_writes_the_run(tmp_path):
     outs = _run_all([cmd + ['0'], cmd + ['1']])
     for out in outs:
         assert out.count('esa [1, ') == 2, out[-2000:]   # 16 / 8 steps
+    # each process draws its eval's panels into its own directory
     top = {p.name for p in wd.iterdir()}
-    assert top == {'events.jsonl', 'log_esa.txt', 'net_esa', 'proc1'}
+    assert top == {'events.jsonl', 'log_esa.txt', 'net_esa', 'panels',
+                   'proc1'}
     assert {p.name for p in (wd / 'proc1').iterdir()} == {
-        'events.jsonl', 'log_esa.txt', 'net_esa'}
+        'events.jsonl', 'log_esa.txt', 'net_esa', 'panels'}
     a = torch.load(wd / 'net_esa' / 'last', weights_only=True)['model']
     b = torch.load(wd / 'proc1' / 'net_esa' / 'last',
                    weights_only=True)['model']
