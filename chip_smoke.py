@@ -126,6 +126,22 @@ ground truth, and times the path.  Phases:
                  vgg16_bn and the instance augmentations card vs CPU at
                  the CPU tests' tolerances; (d) profiling.Timer spans at
                  least the CUDA-event time; device_probe's count
+ 20. graphs      the compiled programs as CUDA graphs: (a) phase 5's
+                 frames through pipeline.make_jitted_pipeline, every
+                 output torch.equal to eager infer_poses, FUSED_CBAM off
+                 and on, SPEED median <= 0.01; (b) K1 and K2 device
+                 kernels in one replay by the profiler (1 and 0, 1 and
+                 29); (c) 20 replays of the FUSED_CBAM graph bit-equal;
+                 (d) eager and replay in turns at batch 1 and 256: ms per
+                 call, images/s, capture seconds, pool bytes, no host
+                 wait around a replay; (e) the graphed EvalCache.infer
+                 torch.equal to eager on phase 10's frames; (f)
+                 make_scan_step from r5, 8 steps at batch 32 and 256
+                 against two eager runs on the same draws (held to what
+                 one eager run gives against the other), ms per step both
+                 ways, peak memory; (g) cli.train on the synthetic route
+                 through the scan.  Phases 10, 11c, 12c-d, 13, 14 and 17
+                 run their commands, and so the graphs, as users do
 
 Kernel and plain times (``ms``, ``plain_ms``) are means of eager calls
 between CUDA events, host cost included, as in earlier PRs; K1 and K2 are
@@ -140,7 +156,9 @@ in-train evaluate, in phase 13's two-stage eval and in phase 14's
 shard-fed in-train evaluate, in phase 16's LINEMOD evals, in phase 17's
 rehearsal (in-train evals and cli.evaluate) and in phase 19b's
 cli.train_linemod from built DBs; for K1 and K2 in phase 18's imported
-reference checkpoint; error
+reference checkpoint and, by the profiler, in one replay of phase 20's
+serving graph; a replay adds what its capture recorded to the counts,
+``utils/graphs.py``; error
 against its plain version, times, bound); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -688,6 +706,7 @@ def phase_throughput(model, pts) -> None:
 STAGES = ('detect', 'crop', 'hrnet', 'decode', 'ransac_epnp', 'refine')
 
 
+K1_KERNEL = 'peak_decode_kernel'
 K2_KERNEL = 'cbam_cluster_kernel'
 
 
@@ -2863,6 +2882,354 @@ def phase_tooling() -> int:
     return launches
 
 
+GRAPH_REPEATS = 20           # 20c: replays of the FUSED_CBAM graph
+GRAPH_TIMING = ((1, 10), (256, 5))   # 20d: (batch, calls per run)
+SCAN_STEPS = 8                       # 20f: steps in one graph
+# 20f: one bf16 rounding step, 2^-8: hrnet_esa computes in bf16, and a
+# last-bit difference of an f32 master can move a bf16 operand by this much
+BF16_REL = 2.0 ** -8
+POSE_FIELDS = ('quat', 'trans', 'R', 'keypoints_2d', 'confidences',
+               'selected', 'heatmaps', 'rates', 'origins')
+
+
+def _unequal(a, b) -> list[str]:
+    """The fields of two PoseOutputs that are not torch.equal, each with
+    its largest difference."""
+    out = []
+    for name in POSE_FIELDS:
+        x, y = getattr(a, name), getattr(b, name)
+        if not torch.equal(x, y):
+            d = (x.float() - y.float()).abs()
+            out.append(f'{name} max {float(d.max()):.3g} at '
+                       f'{d.flatten().argmax().item()}')
+    return out
+
+
+def replay_kernels(call) -> tuple[int, int, int]:
+    """(K1, K2, all) device kernels of one ``call()`` under torch.profiler,
+    by name; -1 each when the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA and e.name not in STAGES]
+    if not names:
+        return -1, -1, -1
+    return (sum(K1_KERNEL in n for n in names),
+            sum(K2_KERNEL in n for n in names), len(names))
+
+
+def graphs_serving(model, pts, s) -> tuple[int, int]:
+    """20a-c: phase 5's frames and seed through make_jitted_pipeline and
+    through eager infer_poses, FUSED_CBAM off and on; the device kernels
+    of one replay; 20 replays of the FUSED_CBAM graph.  Returns K1's and
+    K2's device kernels in one FUSED_CBAM replay."""
+    from esa_pose_estimation_tpu_torch import pipeline
+    from esa_pose_estimation_tpu_torch.eval.speed_score import (
+        speed_score_from_matrices,
+    )
+    from esa_pose_estimation_tpu_torch.models import layers
+    from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
+        peak_decode,
+    )
+    from esa_pose_estimation_tpu_torch.experimental.cbam_fuse import (
+        fused_cbam,
+    )
+    jitted = pipeline.make_jitted_pipeline(model, pts, **SERVE_KW)
+
+    def graph_call():
+        return jitted(s.image, s.bbox, torch.Generator(
+            device=DEVICE).manual_seed(SEED + 3))
+    per_replay = {}
+    for fused in (False, True):
+        layers.FUSED_CBAM = fused
+        try:
+            eager = serve(model, s, pts)
+            t0 = time.perf_counter()
+            first = graph_call()              # warm-up, capture, replay
+            torch.cuda.synchronize()
+            t_first = time.perf_counter() - t0
+            out = graph_call()
+            torch.cuda.synchronize()
+            bad = _unequal(eager, first) + _unequal(eager, out)
+            if bad:
+                raise AssertionError(f'graphs FUSED_CBAM={fused}: replay '
+                                     f'differs from eager: {bad}')
+            med = statistics.median(speed_score_from_matrices(
+                out.R, out.trans, s.quat, s.trans).speed.cpu().tolist())
+            if not med <= 0.01:
+                raise AssertionError(f'graphs FUSED_CBAM={fused}: SPEED '
+                                     f'median {med}')
+            peak_decode.launches = fused_cbam.launches = 0
+            k1, k2, n = replay_kernels(graph_call)
+            counted = (peak_decode.launches, fused_cbam.launches)
+            want = (1, 29 if fused else 0)
+            log(f'graphs 20a FUSED_CBAM={fused}: {s.image.shape[0]} frames, '
+                f'every output of two replays torch.equal to eager '
+                f'infer_poses; SPEED median {med:.5f} (limit 0.01); first '
+                f'call (warm-up, capture, replay) {t_first:.2f} s')
+            log(f'graphs 20b FUSED_CBAM={fused}: one replay holds {n} device '
+                f'kernels, K1 {k1}, K2 {k2} (profiler; expected {want}); '
+                f'the counters added {counted}')
+            if (k1, k2) != want or counted != want:
+                raise AssertionError(f'graphs 20b: kernels in one replay '
+                                     f'{(k1, k2)}, counted {counted}, '
+                                     f'expected {want}')
+            per_replay[fused] = (k1, k2)
+            if fused:
+                outs = [graph_call() for _ in range(GRAPH_REPEATS)]
+                torch.cuda.synchronize()
+                diff = [(i, _unequal(outs[0], o))
+                        for i, o in enumerate(outs[1:], 1)
+                        if _unequal(outs[0], o)]
+                log(f'graphs 20c fault 2: {GRAPH_REPEATS} replays of the '
+                    f'FUSED_CBAM graph at batch {s.image.shape[0]} '
+                    f'({29 * GRAPH_REPEATS} K2 launches back to back): '
+                    f'{len(diff)} differ from the first {diff}')
+                if diff:
+                    raise AssertionError(f'graphs 20c: replays differ {diff}')
+        finally:
+            layers.FUSED_CBAM = False
+    for st in jitted.graphs.stats():
+        log(f'graphs capture at batch {s.image.shape[0]}: {st["seconds"]:.2f} '
+            f's, pool +{st["pool_bytes"] / 2**20:.0f} MiB, launches per '
+            f'replay {st["launches"]}')
+    return per_replay[True]
+
+
+def graphs_timing(model, pts) -> None:
+    """20d: eager and replay in turns (eager, graph, graph, eager) at
+    batch 1 and 256, given box, K2 off: ms per call, images/s, capture
+    seconds and pool bytes, and no host wait around a replay."""
+    from esa_pose_estimation_tpu_torch import pipeline
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    s = synthetic.make_sample(gen, pts, 256, render=False)
+    frames = synthetic.render_frame(s.keypoints_2d[:16]).repeat(16, 1, 1)
+    boxes = s.bbox[:16].repeat(16, 1)
+    rgen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    eager = pipeline.make_pipeline(model, pts)
+    jitted = pipeline.make_jitted_pipeline(model, pts)
+    for batch, iters in GRAPH_TIMING:
+        f, bx = frames[:batch].contiguous(), boxes[:batch].contiguous()
+        eager(f, bx, rgen)
+        jitted(f, bx, rgen)
+        torch.cuda.synchronize()
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn(f, bx, rgen)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / iters * 1e3
+        e1, g1, g2, e2 = (timed(eager), timed(jitted), timed(jitted),
+                          timed(eager))
+        e_ms, g_ms = (e1 + e2) / 2, (g1 + g2) / 2
+        st = jitted.graphs.stats()[-1]
+        log(f'graphs 20d batch {batch}: eager {e_ms:.2f} ms per call '
+            f'({batch / e_ms * 1e3:.1f} img/s; runs {e1:.2f}, {e2:.2f}), '
+            f'graph replay {g_ms:.2f} ms ({batch / g_ms * 1e3:.1f} img/s; '
+            f'runs {g1:.2f}, {g2:.2f}); capture {st["seconds"]:.2f} s, pool '
+            f'+{st["pool_bytes"] / 2**20:.0f} MiB')
+        check_no_host_wait(f'graphs 20d replay at batch {batch}',
+                           lambda: jitted(f, bx, rgen))
+
+
+def graphs_eval(pts) -> None:
+    """20e: the graphed EvalCache.infer against eager
+    infer_poses_from_crops on phase 10's 128 frames, every output
+    torch.equal."""
+    from esa_pose_estimation_tpu_torch import pipeline
+    from esa_pose_estimation_tpu_torch.eval.eval_cache import EvalCache
+    model = r5_masters().eval()
+    cache = EvalCache(model, held_out_batches(pts), pts)
+    for i, b in enumerate(cache.batches):
+        got = cache.infer(model, b, torch.Generator(
+            device=DEVICE).manual_seed(SEED + 30 + i))
+        want = pipeline.infer_poses_from_crops(
+            model, b['crop'], b['rate'], b['origin'], pts,
+            torch.Generator(device=DEVICE).manual_seed(SEED + 30 + i),
+            **cache.infer_kw)
+        bad = _unequal(want, got)
+        if bad:
+            raise AssertionError(f'graphs 20e batch {i}: {bad}')
+    log(f'graphs 20e: EvalCache.infer on {cache.n_frames} held-out frames '
+        f'in {len(cache.batches)} batches torch.equal to eager '
+        f'infer_poses_from_crops ({len(cache.graphs.entries)} graph)')
+    del cache, model
+    torch.cuda.empty_cache()
+
+
+def _train_diff(a, b, start: list[torch.Tensor]) -> dict:
+    """How far two trained copies of one model are apart: the largest
+    parameter difference; the update of ``a`` (its parameters less
+    ``start``) against that of ``b``, as the norm of their difference
+    over the norm of b's; the largest running-statistic difference
+    relative to 1 + |b|."""
+    with torch.no_grad():
+        da = torch.cat([(p - q).flatten()
+                        for p, q in zip(a.parameters(), start)])
+        db = torch.cat([(p - q).flatten()
+                        for p, q in zip(b.parameters(), start)])
+        stats = max(float(((x - y).abs() / (1 + y.abs())).max())
+                    for x, y in zip(a.buffers(), b.buffers()))
+        return {'params': float((da - db).abs().max()),
+                'update': float((da - db).norm() / db.norm()),
+                'stats': stats}
+
+
+def graphs_scan(pts) -> None:
+    """20f: from r5, make_scan_step's graph of SCAN_STEPS steps at batch 32
+    and 256 against two runs of as many eager train_steps on the same
+    draws.  The backward pass is not deterministic on the card (two eager
+    runs differ from the second step on), so the graph is held to what
+    one eager run gives against the other: the first loss torch.equal
+    (the forward is); the update vector within 1.25 times the eager runs'
+    relative difference, and the parameters within 2 lr a step; running
+    statistics within a tenth of how far training moved them; losses
+    within 2^-7 relative (two bf16 rounding steps).  Then ms per step, eager and graph in turns (the second eager
+    run, two replays, an eager run after the graph is freed: at batch 256
+    its pool and an eager step do not fit together), and the scan's peak
+    memory."""
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+    from esa_pose_estimation_tpu_torch.utils import config
+    cfg = config.TrainConfig(lr_boundaries=(0, 100, 170))   # 12c's rate
+    for batch in (32, 256):
+        fn = tstate.BatchFn(
+            draw=lambda g, b=batch: synthetic.draw_batch(g, b, device=DEVICE),
+            make=lambda d, b=batch: synthetic.make_batch(None, b, pts,
+                                                         draws=d))
+        e1, e2, sc = (tstate.create_train_state(r5_masters(), cfg, 1000)
+                      for _ in range(3))
+        start = [p.detach().clone() for p in e1.model.parameters()]
+        buffers = [b.detach().clone() for b in e1.model.buffers()]
+        lr = e1.schedule(0)
+        g1, g2, gs = (torch.Generator(device=DEVICE).manual_seed(SEED + 40)
+                      for _ in range(3))
+
+        def eager_steps(st, g):
+            return torch.stack([
+                tstate.train_step(st, fn.make(fn.draw(g)))['loss']
+                for _ in range(SCAN_STEPS)])
+
+        def timed(call):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) / SCAN_STEPS * 1e3
+        want, _ = timed(lambda: eager_steps(e1, g1))
+        again, e_first = timed(lambda: eager_steps(e2, g2))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        scan = tstate.make_scan_step(sc, fn, SCAN_STEPS)
+        got, first_ms = timed(lambda: scan(gs))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        spread = _train_diff(e2.model, e1.model, start)
+        diff = _train_diff(sc.model, e1.model, start)
+        moved = max(float(((x - y).abs() / (1 + y.abs())).max())
+                    for x, y in zip(e1.model.buffers(), buffers))
+        rel = float(((got - want).abs() / want.abs()).max())
+        rel2 = float(((again - want).abs() / want.abs()).max())
+        log(f'graphs 20f batch {batch}: {SCAN_STEPS} steps at lr {lr:g} as '
+            f'one graph against eager train_steps on the same draws (a '
+            f'second eager run against the first in brackets): first loss '
+            f'equal {bool(got[0] == want[0])} ({bool(again[0] == want[0])}); '
+            f'losses rel {rel:.3g} ({rel2:.3g}; limit {2 * BF16_REL:.3g}); '
+            f'update rel {diff["update"]:.3g} ({spread["update"]:.3g}); '
+            f'parameters max {diff["params"]:.3g} ({spread["params"]:.3g}; '
+            f'limit {2 * lr * SCAN_STEPS:.3g}); running statistics '
+            f'{diff["stats"]:.3g} ({spread["stats"]:.3g}; moved {moved:.3g}); '
+            f'steps {e1.step}, {sc.step}')
+        if not (bool(got[0] == want[0]) and rel <= 2 * BF16_REL
+                and diff['update'] <= 1.25 * spread['update']
+                and diff['params'] <= 2 * lr * SCAN_STEPS
+                and diff['stats'] <= 0.1 * moved and sc.step == e1.step):
+            raise AssertionError(f'graphs 20f batch {batch}: {diff} against '
+                                 f'{spread}, losses rel {rel}')
+        del e2
+        runs = [e_first, timed(lambda: scan(gs))[1],
+                timed(lambda: scan(gs))[1]]
+        cap_s, cap_bytes = scan.capture.seconds, scan.capture.pool_bytes
+        del scan                         # the graph and its pool with it
+        torch.cuda.empty_cache()
+        runs.append(timed(lambda: eager_steps(e1, g1))[1])
+        e_ms, g_ms = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+        log(f'graphs 20f batch {batch}: eager {e_ms:.1f} ms per step '
+            f'({batch / e_ms * 1e3:.1f} img/s), graph {g_ms:.1f} ms per step '
+            f'({batch / g_ms * 1e3:.1f} img/s), draws and batch making '
+            f'included; runs {[round(r, 1) for r in runs]}; first scan call '
+            f'(warm-up, capture, replay) {first_ms * SCAN_STEPS / 1e3:.2f} s, '
+            f'capture {cap_s:.2f} s, pool +{cap_bytes / 2**30:.2f} GiB, peak '
+            f'memory of the scan {peak:.2f} GiB')
+        del e1, sc
+        torch.cuda.empty_cache()
+
+
+def graphs_command() -> None:
+    """20g: cli.train on the synthetic route at full width, 8 steps at
+    batch 32 in two chunks of 4: the scan's graph is captured once and
+    replayed twice; finite losses; K1 in its in-train eval."""
+    import tempfile
+
+    from esa_pose_estimation_tpu_torch.cli import train
+    from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
+        peak_decode,
+    )
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+    real = tstate.make_scan_step
+    calls: list[int] = []
+
+    def counting(*args, **kwargs):
+        fn = real(*args, **kwargs)
+
+        def run(g):
+            calls.append(args[2])
+            return fn(g)
+        return run
+    tstate.make_scan_step = counting
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            peak_decode.launches = 0
+            train.main(['--workdir', f'{root}/run', '--epochs', '1',
+                        '--synthetic-size', '256', '--batch-size', '32',
+                        '--log-every', '4', '--eval-every', '1',
+                        *panel_args()])
+            torch.cuda.synchronize()
+            k1 = peak_decode.launches
+            rows = Path(root, 'run', 'log_esa.txt').read_text().split('\n')
+    finally:
+        tstate.make_scan_step = real
+    loss = float(rows[1].split('\t')[2])
+    log(f'graphs 20g cli.train (hrnet_esa, 8 steps at batch 32, '
+        f'--log-every 4): scan calls {calls}, epoch loss {loss:.5f}, K1 '
+        f'launches {k1} in the in-train eval; '
+        f'{time.perf_counter() - t0:.1f} s')
+    if calls != [4, 4] or not math.isfinite(loss) or k1 < 4:
+        raise AssertionError(f'graphs 20g: scan calls {calls}, loss {loss}, '
+                             f'K1 {k1}')
+
+
+def phase_graphs(model, pts, s) -> tuple[int, int]:
+    """20: the compiled programs as CUDA graphs.  Returns K1's and K2's
+    device kernels in one FUSED_CBAM replay of the serving graph."""
+    t0 = time.perf_counter()
+    replay = graphs_serving(model, pts, s)
+    graphs_timing(model, pts)
+    graphs_eval(pts)
+    graphs_scan(pts)
+    graphs_command()
+    log(f'graphs: phase {time.perf_counter() - t0:.1f} s')
+    return replay
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_device()
@@ -2897,6 +3264,8 @@ def main() -> None:
      k2['launches_imported_checkpoint']) = phase_reference_checkpoint(
         model, frames, pts)
     k1['launches_linemod_db_eval'] = phase_tooling()
+    (k1['launches_graph_replay'],
+     k2['launches_graph_replay']) = phase_graphs(model, pts, frames)
     log(f'total: {time.perf_counter() - t_start:.1f} s')
     # graph_ms / plain_graph_ms (K1 and K2): the same calls replayed from a
     # CUDA graph, beside ms / plain_ms by eager calls as in earlier PRs;
@@ -2913,14 +3282,17 @@ def main() -> None:
     # cli.dress_rehearsal; launches_imported_checkpoint (K1 and K2): in one
     # FUSED_CBAM serving call of phase 18's imported reference checkpoint;
     # launches_linemod_db_eval (K1): in phase 19b's cli.train_linemod from
-    # the DBs db_builder made
+    # the DBs db_builder made; launches_graph_replay (K1 and K2): device
+    # kernels in one replay of phase 20's FUSED_CBAM serving graph, by the
+    # profiler
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
             'graph_ms', 'plain_graph_ms', 'launches_two_stage',
             'launches_train_eval', 'launches_two_stage_eval',
             'launches_shard_train_eval', 'launches_linemod_eval',
             'launches_rehearsal_train_eval', 'launches_rehearsal_evaluate',
-            'launches_imported_checkpoint', 'launches_linemod_db_eval')
+            'launches_imported_checkpoint', 'launches_linemod_db_eval',
+            'launches_graph_replay')
     print(json.dumps({'kernels': [{k: rec[k] for k in keys if k in rec}
                                   for rec in (k1, k2, k3)]}))
     print(json.dumps({'ok': True, 'device': {

@@ -7,10 +7,12 @@
         [--device cpu]
 
 Port of the JAX package's ``cli/eval_synthetic.py``.  It scores ``--frames``
-synthetic frames through the full serving path (``pipeline.infer_poses``)
-and prints one JSON line: median / p90 / mean SPEED score, the fraction of
-frames beating the reference leaderboard score (0.0193), the worst frame
-and its depth, and the mean pixel error of the selected keypoints.
+synthetic frames through the full serving path
+(``pipeline.make_jitted_pipeline``: on the card one CUDA graph, replayed
+per batch) and prints one JSON line: median / p90 / mean SPEED score, the
+fraction of frames beating the reference leaderboard score (0.0193), the
+worst frame and its depth, and the mean pixel error of the selected
+keypoints.
 ``--int8`` serves the head conv in int8 (``models.layers.INT8_SERVING``):
 this flag is the lever's accuracy gate.  ``--perturb`` scores the frames
 through ``data/augment.perturb_capture`` (exposure gain/offset, then
@@ -159,6 +161,10 @@ def main(argv=None) -> dict:
     n_batches = -(-args.frames // args.batch_size)
     old_int8 = layers.INT8_SERVING
     layers.INT8_SERVING = args.int8
+    serve = pipeline.make_jitted_pipeline(
+        model, points_3d, crop_size=args.crop_size, conf_threshold=0.6,
+        min_keypoints=0, n_hypotheses=args.n_hypotheses,
+        flip_tta=args.flip_tta, mirror_evidence=args.mirror_evidence)
     try:
         for i in range(n_batches):
             gen = torch.Generator(device=dev).manual_seed(
@@ -178,11 +184,7 @@ def main(argv=None) -> dict:
                 # scored above 0.05 (its score is then 0)
                 take = min(args.batch_size, args.frames - i * args.batch_size)
                 n_fallback += int((det_scores <= 0.05)[:take].sum())
-            out = pipeline.infer_poses(
-                model, frames, boxes, points_3d, gen,
-                crop_size=args.crop_size, conf_threshold=0.6,
-                min_keypoints=0, n_hypotheses=args.n_hypotheses,
-                flip_tta=args.flip_tta, mirror_evidence=args.mirror_evidence)
+            out = serve(frames, boxes, gen)
             sc = speed_score_from_matrices(out.R, out.trans, s.quat, s.trans)
             all_scores.append((sc.score_t + sc.score_r).cpu().numpy())
             depths.append(s.trans[:, 2].cpu().numpy())

@@ -7,7 +7,8 @@
 
 Port of the JAX package's ``cli/evaluate.py``.  It runs the batched
 serving tail over a labelled split (crops cached once on the device by
-``eval/eval_cache.EvalCache``), reports the SPEED scores (translation,
+``eval/eval_cache.EvalCache``, whose tail replays a CUDA graph per batch
+shape on the card), reports the SPEED scores (translation,
 rotation, combined), the pixel error of the selected keypoints and the
 count of frames whose pose came out non-finite, and appends a row to
 ``<workdir>/load/load_esa.txt`` as the reference does (demo.py:358-363).

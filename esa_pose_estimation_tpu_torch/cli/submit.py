@@ -11,7 +11,9 @@ over the synthetic ``test`` and the ``real_test`` partitions (no labels)
 with the competition's keypoint selection (confidence > 0.8 with a floor of
 24 keypoints, val.py:172-175), solves the poses, and writes the
 leaderboard CSV with ``eval/submission.SubmissionWriter`` into
-``--workdir``.  The weights come from the port checkpoint
+``--workdir``.  It serves through ``pipeline.make_jitted_pipeline``: on
+the card one CUDA graph per batch shape (a partition's last, smaller
+batch takes a second one).  The weights come from the port checkpoint
 ``<workdir>/net_esa/<--checkpoint>``, or from ``--artifact`` when one is
 given (``cli/evaluate.load_weights``).  Reading image files needs Pillow.
 """
@@ -26,7 +28,7 @@ from esa_pose_estimation_tpu_torch.cli.evaluate import load_weights
 from esa_pose_estimation_tpu_torch.data import speed as speed_data
 from esa_pose_estimation_tpu_torch.data.speed import to_device
 from esa_pose_estimation_tpu_torch.eval.submission import SubmissionWriter
-from esa_pose_estimation_tpu_torch.pipeline import make_pipeline
+from esa_pose_estimation_tpu_torch.pipeline import make_jitted_pipeline
 
 
 def run_partition(model, records, points_3d, writer: SubmissionWriter,
@@ -39,10 +41,10 @@ def run_partition(model, records, points_3d, writer: SubmissionWriter,
     dev = next(model.parameters()).device
     loader = speed_data.BatchLoader(records, min(batch_size, len(records)),
                                     shuffle=False, drop_last=False)
-    run = make_pipeline(model, points_3d, crop_size=crop_size,
-                        conf_threshold=0.8, min_keypoints=24,
-                        norm_mean=norm_mean, crop_rule=crop_rule,
-                        flip_tta=flip_tta)
+    run = make_jitted_pipeline(model, points_3d, crop_size=crop_size,
+                               conf_threshold=0.8, min_keypoints=24,
+                               norm_mean=norm_mean, crop_rule=crop_rule,
+                               flip_tta=flip_tta)
     for batch in loader:
         out = run(to_device(batch['frame'], dev),
                   to_device(batch['bbox'], dev), generator)

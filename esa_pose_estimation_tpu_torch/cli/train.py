@@ -24,7 +24,9 @@ crops on the loader's threads and ships 128x128 crops in place of
 layout (data_load4.py:90-101) through ``data/speed.BatchLoader``.  Both
 keep two batches' copies to the card in flight.  Without either, the
 synthetic dataset (``data/synthetic.make_batch``) is generated on the
-device.  ``--test-pkl`` gives the held-out eval split of either route; a
+device, ``--log-every`` steps at a time by ``train/state.make_scan_step``
+(on the card one CUDA graph replay per chunk; per step under several
+processes).  ``--test-pkl`` gives the held-out eval split of either route; a
 shard run without it evaluates on the shard's first four batches.
 
 Several processes, one per card: ``--coordinator host:port
@@ -207,6 +209,24 @@ def train(args) -> dict:
     tcp = TcpPusher(host=args.tcp_host)
     tcp.create_socket(classname=CLASS_NAME)
 
+    # the synthetic route runs make_scan_step, one per chunk length (the
+    # JAX scan_cache); with several processes it stays per step, since
+    # the graph is not captured under DistributedDataParallel
+    scan = not (use_shard or use_real) and n_proc == 1
+    scans: dict[int, object] = {}
+    if scan:
+        batch_fn = state_mod.BatchFn(
+            draw=lambda g: synthetic.draw_batch(
+                g, proc_batch, cfg.crop_size, args.augment_geom,
+                args.augment_photo, device=dev),
+            make=lambda d: synthetic.make_batch(
+                None, proc_batch, points_3d, crop_size=cfg.crop_size,
+                augment_geom=args.augment_geom,
+                augment_photo=args.augment_photo, draws=d))
+    elif not (use_shard or use_real):
+        print('synthetic route per step: the scan is not captured under '
+              f'DistributedDataParallel ({n_proc} processes)')
+
     # the running minima of the best gates survive a resume (sidecar)
     best: dict[str, float] = ckpt.load_best()
     result: dict = {}
@@ -238,7 +258,7 @@ def train(args) -> dict:
                         augment_photo=args.augment_photo)
                     for b in data_pipeline.prefetch_to_device(iter(loader),
                                                               dev, size=2))
-            else:
+            elif not scan:
                 batches = (
                     synthetic.make_batch(gen, proc_batch, points_3d,
                                          crop_size=cfg.crop_size,
@@ -250,14 +270,33 @@ def train(args) -> dict:
             # print interval (the reference's cadence, main.py:396-398)
             # and the epoch mean once
             loss_hist = []
-            for i, batch in enumerate(batches):
-                metrics = state_mod.train_step(st, batch, cfg.loss_weight_w)
-                loss_hist.append(metrics['loss'])
-                if i % args.log_every == args.log_every - 1:
-                    losses.update(float(metrics['loss']))
-                    print(f'{CLASS_NAME} [{epoch + 1}, {i + 1}] '
-                          f'loss : {losses.avg:.6f}')
-            losses.avg = (float(torch.stack(loss_hist).mean()) if loss_hist
+            if scan:
+                # the synthetic route, as the JAX package's: log_every
+                # steps (or the epoch's tail) per call of a scan, one
+                # CUDA graph replay on the card
+                base = 0
+                while base < steps_per_epoch:
+                    n = min(args.log_every, steps_per_epoch - base)
+                    if n not in scans:
+                        scans[n] = state_mod.make_scan_step(
+                            st, batch_fn, n, cfg.loss_weight_w)
+                    chunk = scans[n](gen)
+                    loss_hist.append(chunk)
+                    base += n
+                    if base % args.log_every == 0:
+                        losses.update(float(chunk[-1]))
+                        print(f'{CLASS_NAME} [{epoch + 1}, {base}] '
+                              f'loss : {losses.avg:.6f}')
+            else:
+                for i, batch in enumerate(batches):
+                    metrics = state_mod.train_step(st, batch,
+                                                   cfg.loss_weight_w)
+                    loss_hist.append(metrics['loss'][None])
+                    if i % args.log_every == args.log_every - 1:
+                        losses.update(float(metrics['loss']))
+                        print(f'{CLASS_NAME} [{epoch + 1}, {i + 1}] '
+                              f'loss : {losses.avg:.6f}')
+            losses.avg = (float(torch.cat(loss_hist).mean()) if loss_hist
                           else float('nan'))
             lr = st.schedule(st.step)
             logger.append([epoch + 1, lr, losses.avg])

@@ -80,6 +80,12 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     )
 
 
+def quat_to_dcm(q: torch.Tensor) -> torch.Tensor:
+    """Passive DCM, the reference ``quat2dcm`` (utils.py:68-95): the
+    transpose of :func:`quat_to_rotmat`, batched."""
+    return quat_to_rotmat(q).transpose(-1, -2)
+
+
 def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
     """Rotation matrix -> quaternion (w,x,y,z), batched, branch-free
     (largest-pivot candidate of four, sign canonicalized to w >= 0)."""

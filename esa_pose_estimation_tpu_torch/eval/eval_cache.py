@@ -7,7 +7,9 @@ frame-carrying batches once, runs the box rule and the bilinear resample on
 the device, and keeps the 128x128 crops (65 KB a frame, against 2.3 MB for
 the frame) resident with their uncrop transform; the labels stay on the
 host.  Each evaluation then runs only ``pipeline.infer_poses_from_crops``
-per batch, with whatever model it is given.
+per batch, with whatever model it is given: on the card one CUDA graph
+per batch shape (``utils/graphs.Graphed``), replayed with the crops and
+the RANSAC uniforms copied in, as the JAX package jits the same tail.
 
 Batches may hold host arrays (a loader's) or tensors (``data.synthetic.
 make_batch(..., with_frames=True)`` on the card).  The first batch keeps
@@ -26,6 +28,8 @@ import torch
 from esa_pose_estimation_tpu_torch import pipeline as pipeline_mod
 from esa_pose_estimation_tpu_torch.data.speed import to_device
 from esa_pose_estimation_tpu_torch.ops import crop as crop_ops
+from esa_pose_estimation_tpu_torch.ops import pnp as pnp_mod
+from esa_pose_estimation_tpu_torch.utils import graphs
 
 
 def _host(a) -> np.ndarray:
@@ -75,6 +79,7 @@ class EvalCache:
             'decode_s': round(decode_s, 2),
             'crop_stage_s': round(time.perf_counter() - t0 - decode_s, 2),
         }
+        self.graphs = graphs.Graphed(pipeline_mod.infer_poses_from_crops)
 
     @property
     def n_frames(self) -> int:
@@ -84,7 +89,11 @@ class EvalCache:
               generator: torch.Generator | None = None
               ) -> pipeline_mod.PoseOutput:
         """The crops of one cached batch (already on the device) -> poses
-        under ``model``."""
-        return pipeline_mod.infer_poses_from_crops(
-            model, batch['crop'], batch['rate'], batch['origin'],
-            self.points_3d, generator, **self.infer_kw)
+        under ``model``, the RANSAC uniforms drawn from ``generator``."""
+        crops = batch['crop']
+        uniforms = pnp_mod.draw_ransac_uniforms(
+            generator, crops.shape[:1], self.points_3d.shape[-2],
+            self.infer_kw['n_hypotheses'], crops.device)
+        return self.graphs(model, crops, batch['rate'], batch['origin'],
+                           self.points_3d, ransac_uniforms=uniforms,
+                           **self.infer_kw)

@@ -149,6 +149,15 @@ def _interp_matrix(samples: torch.Tensor, in_size: int) -> torch.Tensor:
     return torch.clamp(1.0 - (idx - samples[..., None]).abs(), min=0.0)
 
 
+def crop_resize_single(image: torch.Tensor, origin: torch.Tensor,
+                       crop_sizes: torch.Tensor, size: torch.Tensor,
+                       out_size: int) -> torch.Tensor:
+    """Bilinear-sample one square crop to (out_size, out_size[, C]):
+    :func:`crop_resize_from_boxes` of a batch of one."""
+    return crop_resize_from_boxes(image[None], origin[None], crop_sizes[None],
+                                  size[None], out_size)[0]
+
+
 def crop_resize_from_boxes(images: torch.Tensor, origin: torch.Tensor,
                            crop_sizes: torch.Tensor, size: torch.Tensor,
                            out_size: int) -> torch.Tensor:

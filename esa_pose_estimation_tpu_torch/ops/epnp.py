@@ -375,3 +375,26 @@ def reprojection_errors(points_3d: torch.Tensor, points_2d: torch.Tensor,
     """Per-point pixel reprojection error -> (..., N)."""
     proj = project_points(points_3d, R, t, K)
     return torch.linalg.vector_norm(proj - points_2d, dim=-1)
+
+
+def epnp_single(points_3d: torch.Tensor, points_2d: torch.Tensor,
+                K: torch.Tensor, weights: torch.Tensor | None = None,
+                refine_betas: bool = True
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """EPnP for one problem: points_3d (N, 3), points_2d (N, 2) pixels,
+    K (3, 3), weights (N,) nonnegative (0 excludes a point).  Returns
+    (R (3, 3), t (3,)) with x_cam = R x_world + t."""
+    return epnp(points_3d, points_2d, K, weights, refine_betas)
+
+
+def epnp(points_3d: torch.Tensor, points_2d: torch.Tensor, K: torch.Tensor,
+         weights: torch.Tensor | None = None, refine_betas: bool = True
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched EPnP over any leading dims: points_3d (..., N, 3),
+    points_2d (..., N, 2), K (3, 3) or broadcast, weights (..., N) or
+    None (all ones).  Returns (R (..., 3, 3), t (..., 3))."""
+    if weights is None:
+        weights = torch.ones(points_3d.shape[:-1], dtype=points_3d.dtype,
+                             device=points_3d.device)
+    shared = epnp_precompute(points_3d, points_2d, K)
+    return epnp_from_mask(shared, weights, refine_betas=refine_betas)

@@ -223,15 +223,29 @@ def heatmap_evidence(heatmaps_nhwc: torch.Tensor, points_3d: torch.Tensor,
     return fn
 
 
+def draw_ransac_uniforms(generator: torch.Generator | None,
+                         batch: tuple[int, ...], n_points: int, n_hyp: int,
+                         device=None) -> torch.Tensor:
+    """The random half of :func:`ransac_epnp`'s sampling: (..., n_hyp,
+    n_points) uniforms in [0, 1) from ``generator``.  Their shape depends
+    on shapes alone, so a caller can draw them before a CUDA graph of the
+    solver and feed them in through ``uniforms=`` (the JAX ``key``
+    argument of the jitted program)."""
+    return torch.rand(tuple(batch) + (n_hyp, n_points), generator=generator,
+                      device=device)
+
+
 def _sample_masks(generator: torch.Generator | None, batch: tuple[int, ...],
                   n_points: int, n_hyp: int, sample_size: int,
-                  valid: torch.Tensor) -> torch.Tensor:
+                  valid: torch.Tensor,
+                  uniforms: torch.Tensor | None = None) -> torch.Tensor:
     """(..., n_hyp, N) masks of ``sample_size`` distinct valid points:
     Gumbel top-k over the valid set (sampling without replacement, no
-    rejection loop).  The bits differ from JAX's; tests inject JAX masks
-    through ``ransac_epnp(masks=...)``."""
-    u = torch.rand(batch + (n_hyp, n_points), generator=generator,
-                   device=valid.device)
+    rejection loop), from ``uniforms`` or, without them, from uniforms
+    drawn from ``generator``.  The bits differ from JAX's; tests inject
+    JAX masks through ``ransac_epnp(masks=...)``."""
+    u = (draw_ransac_uniforms(generator, batch, n_points, n_hyp,
+                              valid.device) if uniforms is None else uniforms)
     tiny = torch.finfo(torch.float32).tiny
     g = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
     g = torch.where(valid[..., None, :], g, -torch.inf)
@@ -247,13 +261,15 @@ def ransac_epnp(points_3d: torch.Tensor, points_2d: torch.Tensor,
                 n_hypotheses: int = 64,
                 sample_size: int = 6,
                 lm_iters: int = 10,
-                masks: torch.Tensor | None = None) -> PnPResult:
+                masks: torch.Tensor | None = None,
+                uniforms: torch.Tensor | None = None) -> PnPResult:
     """RANSAC-EPnP, batched over any leading dims.
 
     points_3d (..., N, 3); points_2d (..., N, 2) pixels; valid (..., N)
     bool mask of usable correspondences.  ``masks`` (..., H, N) injects the
     hypothesis samples (the tests feed the JAX package's); otherwise they
-    are drawn from ``generator`` on the points' device.  Hypotheses use the
+    come from ``uniforms`` (:func:`draw_ransac_uniforms`), or are drawn
+    from ``generator`` on the points' device.  Hypotheses use the
     closed-form beta1 only (beta refinement when ``sample_size < 6``); the
     best by inlier count, then mean inlier error, is re-fitted on its
     inliers (or on all valid points when it has fewer than 4) and refined
@@ -268,7 +284,7 @@ def ransac_epnp(points_3d: torch.Tensor, points_2d: torch.Tensor,
     sample_size = min(sample_size, n)
     if masks is None:
         masks = _sample_masks(generator, batch, n, n_hypotheses, sample_size,
-                              v)
+                              v, uniforms)
     masks = masks.to(points_3d.dtype)
     hyp_refine = sample_size < 6
 

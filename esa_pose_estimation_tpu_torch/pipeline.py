@@ -22,6 +22,7 @@ profiler running a range costs a few microseconds of host time.
 
 from __future__ import annotations
 
+import inspect
 from typing import NamedTuple
 
 import torch
@@ -33,6 +34,7 @@ from esa_pose_estimation_tpu_torch.models.detector import decode_detections
 from esa_pose_estimation_tpu_torch.ops import crop as crop_ops
 from esa_pose_estimation_tpu_torch.ops import peak as peak_ops
 from esa_pose_estimation_tpu_torch.ops import pnp as pnp_mod
+from esa_pose_estimation_tpu_torch.utils import graphs
 
 
 class PoseOutput(NamedTuple):
@@ -64,13 +66,16 @@ def infer_poses(model, frames: torch.Tensor, bboxes: torch.Tensor,
                 crop_rule: str = 'train',
                 flip_tta: bool = False,
                 mirror_evidence: str = 'heatmap',
-                ransac_masks: torch.Tensor | None = None) -> PoseOutput:
+                ransac_masks: torch.Tensor | None = None,
+                ransac_uniforms: torch.Tensor | None = None) -> PoseOutput:
     """Batched frames + detector boxes -> poses.
 
     frames (B, H, W) grayscale [0, 255]; bboxes (B, 4) [x1, y1, x2, y2];
     points_3d (K, 3) model keypoints.  ``model`` is an :class:`HRNet` on the
     frames' device.  ``generator`` draws the RANSAC samples (on the frames'
-    device); ``ransac_masks`` (B, n_hypotheses, K) injects them instead.
+    device); ``ransac_uniforms`` (B, n_hypotheses, K), drawn by
+    ``ops.pnp.draw_ransac_uniforms``, replace that draw, and
+    ``ransac_masks`` (B, n_hypotheses, K) inject the samples themselves.
     ``crop_rule``: 'train' = ESADataSet box rule, 'val' = the submission
     rule without square-equalization.
     """
@@ -86,7 +91,8 @@ def infer_poses(model, frames: torch.Tensor, bboxes: torch.Tensor,
         n_hypotheses=n_hypotheses, sample_size=sample_size,
         lm_iters=lm_iters, norm_mean=norm_mean, norm_std=norm_std,
         disambiguate=disambiguate, flip_tta=flip_tta,
-        mirror_evidence=mirror_evidence, ransac_masks=ransac_masks)
+        mirror_evidence=mirror_evidence, ransac_masks=ransac_masks,
+        ransac_uniforms=ransac_uniforms)
 
 
 @torch.no_grad()
@@ -104,7 +110,8 @@ def infer_poses_from_crops(model, crops: torch.Tensor, rates: torch.Tensor,
                            disambiguate: bool = True,
                            flip_tta: bool = False,
                            mirror_evidence: str = 'heatmap',
-                           ransac_masks: torch.Tensor | None = None
+                           ransac_masks: torch.Tensor | None = None,
+                           ransac_uniforms: torch.Tensor | None = None
                            ) -> PoseOutput:
     """The serving tail from cropped imagery: normalize -> HRNet -> decode
     -> select -> uncrop -> RANSAC-EPnP -> dual LM.
@@ -136,7 +143,8 @@ def infer_poses_from_crops(model, crops: torch.Tensor, rates: torch.Tensor,
         init = pnp_mod.ransac_epnp(p3, uncropped, K, generator, valid=sel,
                                    n_hypotheses=n_hypotheses,
                                    sample_size=sample_size,
-                                   lm_iters=lm_iters, masks=ransac_masks)
+                                   lm_iters=lm_iters, masks=ransac_masks,
+                                   uniforms=ransac_uniforms)
     with record_function('refine'):
         # final confidence-weighted refinement over the RANSAC inliers,
         # falling back to the selection when the inlier set is degenerate
@@ -166,10 +174,37 @@ def make_pipeline(model, points_3d: torch.Tensor,
                   K: torch.Tensor | None = None, **kwargs):
     """Returns fn(frames, bboxes, generator=None) -> PoseOutput:
     :func:`infer_poses` with the model, the keypoint model and the serving
-    keywords bound (the JAX ``make_jitted_pipeline``, with no jit)."""
+    keywords bound, run eagerly (a profiler sees its stage ranges, which
+    a graph's replay does not emit)."""
     def run(frames, bboxes, generator=None):
         return infer_poses(model, frames, bboxes, points_3d, generator, K=K,
                            **kwargs)
+    return run
+
+
+def make_jitted_pipeline(model, points_3d: torch.Tensor,
+                         K: torch.Tensor | None = None, **kwargs):
+    """Returns fn(frames, bboxes, generator=None) -> PoseOutput, the JAX
+    ``make_jitted_pipeline``: :func:`infer_poses` with the model, the
+    keypoint model and the serving keywords bound, on the card as one CUDA
+    graph per input shape (``utils/graphs.Graphed``; on CPU tensors it
+    runs eagerly).  The RANSAC uniforms are drawn from ``generator`` before
+    the replay, so a call consumes the generator as :func:`infer_poses`
+    does and returns the same poses.  ``fn.graphs`` is the
+    :class:`~utils.graphs.Graphed`."""
+    graphed = graphs.Graphed(infer_poses)
+    n_hyp = kwargs.get('n_hypotheses', inspect.signature(
+        infer_poses).parameters['n_hypotheses'].default)
+
+    def run(frames, bboxes, generator=None):
+        uniforms = None
+        if kwargs.get('ransac_masks') is None:
+            uniforms = pnp_mod.draw_ransac_uniforms(
+                generator, frames.shape[:1], points_3d.shape[-2], n_hyp,
+                frames.device)
+        return graphed(model, frames, bboxes, points_3d, K=K,
+                       ransac_uniforms=uniforms, **kwargs)
+    run.graphs = graphed
     return run
 
 

@@ -25,6 +25,20 @@ BEST_TRAN = 'best_tran'
 BEST_ROTATE = 'best_rotate'
 
 
+def _plain_state_dict(opt: torch.optim.Optimizer) -> dict:
+    """The optimizer's state dict as an eager loop keeps it: a float rate
+    and ``capturable`` off, which ``train/state.make_scan_step`` turns
+    into a device tensor and on.  A checkpoint then loads on the CPU as on
+    the card, and a scan that resumes from it converts it again."""
+    sd = opt.state_dict()
+    for group in sd['param_groups']:
+        if isinstance(group.get('lr'), torch.Tensor):
+            group['lr'] = float(group['lr'])
+        if 'capturable' in group:
+            group['capturable'] = False
+    return sd
+
+
 def _optimizer_step(opt: torch.optim.Optimizer) -> int:
     """Adam's update count (every parameter's 'step' is the same)."""
     for st in opt.state.values():
@@ -75,7 +89,7 @@ class CheckpointManager:
         payload = {
             'model': state.model.state_dict(),
             'optimizer': (None if state.optimizer is None
-                          else state.optimizer.state_dict()),
+                          else _plain_state_dict(state.optimizer)),
             'epoch': int(epoch),
         }
         path = self._path(name)

@@ -8,14 +8,15 @@ weighted HeatmapWing loss (loss.py:116-129); the detector's cosine decay
 (:func:`cosine_schedule`).  Several processes train one model through
 ``TrainState.train_model``, the ``DistributedDataParallel`` wrapper of
 ``parallel/mesh.wrap_data_parallel``, whose backward averages the
-gradients over the processes.  The JAX package's mesh and scan steps have
-no counterpart here (the train loop keeps per-step losses on the device
-instead, ``cli/train.py``).
+gradients over the processes.  :func:`make_scan_step` is the JAX
+``make_sharded_scan_step``: ``n_inner`` steps of batch making, forward,
+backward and Adam as one CUDA graph on the card, one replay per call.  The
+JAX mesh's sharded steps have no counterpart: one process holds one card.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import math
 
@@ -23,6 +24,7 @@ import torch
 from torch import nn
 
 from esa_pose_estimation_tpu_torch.train.loss import weighted_heatmap_loss
+from esa_pose_estimation_tpu_torch.utils import graphs
 from esa_pose_estimation_tpu_torch.utils.config import TrainConfig
 
 
@@ -148,6 +150,145 @@ def optimize(state: TrainState,
     opt.step()
     state.step += 1
     return {'loss': loss.detach(), 'grad_norm': grad_norm.detach()}
+
+
+class BatchFn(NamedTuple):
+    """A batch source in the port's two halves: ``draw(generator)`` makes
+    one batch's random draws (a tree of tensors, e.g.
+    ``data/synthetic.draw_batch``), ``make(draws)`` the batch from them
+    with no randomness (``make_batch(..., draws=)``)."""
+    draw: Callable[[torch.Generator], object]
+    make: Callable[[object], dict[str, torch.Tensor]]
+
+
+def _scan_update(state: TrainState, batch: dict[str, torch.Tensor],
+                 loss_w: float) -> torch.Tensor:
+    """One step as a graph holds it: the gradients stay allocated (zeroed,
+    not dropped) and Adam reads its rate from the tensor in its groups;
+    no gradient norm.  Returns the loss."""
+    model, opt = state.train_model, state.optimizer
+    loss = weighted_heatmap_loss(model(batch['image']), batch['heatmaps'],
+                                 batch['weights'], W=loss_w)
+    opt.zero_grad(set_to_none=False)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def _capturable(opt: torch.optim.Optimizer, device) -> torch.Tensor:
+    """Adam as a graph needs it: ``capturable``, its 'step' counts on the
+    card (in place from then on), and the rate a device tensor shared by
+    the groups, which each captured step writes.  Adam then takes its bias
+    correction in f32 on the card, not in f64 on the host.  Returns the
+    rate's tensor."""
+    lr = torch.zeros((), dtype=torch.float32, device=device)
+    for group in opt.param_groups:
+        group['capturable'] = True
+        group['lr'] = lr
+    for st in opt.state.values():
+        if 'step' in st:
+            st['step'] = st['step'].to(device=device, dtype=torch.float32)
+    return lr
+
+
+def _warm_up_restored(state: TrainState, fn: Callable[[], object],
+                      device) -> None:
+    """``fn()`` once on a side stream (Adam's moments, the gradients,
+    cuBLAS and cuDNN are set up there, not in the capture), then the
+    model and the optimizer put back as they were.  State that the call
+    created is Adam's, which starts at zero."""
+    def tensors():
+        out = list(state.model.parameters()) + list(state.model.buffers())
+        for st in state.optimizer.state.values():
+            out += [v for v in st.values() if isinstance(v, torch.Tensor)]
+        return out
+    saved = {id(t): t.detach().clone() for t in tensors()}
+    graphs.warm_up(fn, device)
+    with torch.no_grad():
+        for t in tensors():
+            if id(t) in saved:
+                t.copy_(saved[id(t)])
+            else:
+                t.zero_()
+
+
+def make_scan_step(state: TrainState, batch_fn: BatchFn, n_inner: int,
+                   loss_w: float = 10.0) -> Callable[[torch.Generator],
+                                                     torch.Tensor]:
+    """The JAX ``make_sharded_scan_step``: ``n_inner`` train steps fused.
+    Returns ``fn(generator) -> losses (n_inner,)``, a device tensor, which
+    advances ``state`` by ``n_inner`` steps in place.
+
+    Each call draws the ``n_inner`` batches' random numbers from
+    ``generator`` first (``batch_fn.draw``, in the per-step loop's order,
+    so the stream is that loop's) and writes the schedule's rate of each
+    step into a device tensor.  On the card a CUDA graph then holds
+    ``n_inner`` x (``batch_fn.make`` -> forward -> loss -> backward ->
+    Adam): captured at the first call, after one warm-up step whose
+    effects are undone, and replayed by every call, with the draws copied
+    into its static buffers.  Adam runs ``capturable`` with a tensor rate
+    (:func:`_capturable`; the checkpoints store the plain form).  The
+    gradients' norm is not computed.  On the CPU the same steps run
+    eagerly (:func:`train_step`), as the per-step loop runs them.
+
+    The graph reads the model and the optimizer where they lie: both
+    change in place only.  It is not captured under
+    ``DistributedDataParallel``.  ``fn.capture`` holds the graph's
+    :class:`~utils.graphs.Captured` once there is one.
+    """
+    if n_inner < 1:
+        raise ValueError(f'make_scan_step: n_inner={n_inner} < 1')
+    device = next(state.model.parameters()).device
+    if device.type != 'cuda':
+        def run_eager(generator: torch.Generator) -> torch.Tensor:
+            return torch.stack([
+                train_step(state, batch_fn.make(batch_fn.draw(generator)),
+                           loss_w)['loss'] for _ in range(n_inner)])
+        return run_eager
+    if state.train_model is not state.model:
+        raise NotImplementedError('make_scan_step: the graph is not '
+                                  'captured under DistributedDataParallel')
+    return _ScanGraph(state, batch_fn, n_inner, loss_w, device)
+
+
+class _ScanGraph:
+    """:func:`make_scan_step`'s ``fn`` on the card."""
+
+    def __init__(self, state: TrainState, batch_fn: BatchFn, n_inner: int,
+                 loss_w: float, device: torch.device):
+        self.state, self.batch_fn = state, batch_fn
+        self.n_inner, self.loss_w, self.device = n_inner, loss_w, device
+        self.lr = _capturable(state.optimizer, device)
+        self.lrs = torch.zeros((n_inner,), dtype=torch.float32,
+                               device=device)
+        self.draws: list = []
+        self.capture: graphs.Captured | None = None
+
+    def _step(self, j: int) -> torch.Tensor:
+        self.lr.copy_(self.lrs[j])
+        return _scan_update(self.state, self.batch_fn.make(self.draws[j]),
+                            self.loss_w)
+
+    def __call__(self, generator: torch.Generator) -> torch.Tensor:
+        st, n = self.state, self.n_inner
+        new = [self.batch_fn.draw(generator) for _ in range(n)]
+        for j in range(n):
+            self.lrs[j].fill_(st.schedule(st.step + j))
+        st.train_model.train()
+        if self.capture is None:
+            self.draws = new
+            with torch.cuda.device(self.device):
+                _warm_up_restored(st, lambda: self._step(0), self.device)
+                self.capture = graphs.capture(
+                    lambda: torch.stack([self._step(j) for j in range(n)]),
+                    self.device)
+        else:
+            for buf, t in zip(graphs.tensors_of(self.draws),
+                              graphs.tensors_of(new)):
+                buf.copy_(t)
+        graphs.replay(self.capture)
+        st.step += n
+        return self.capture.outputs.clone()
 
 
 @torch.no_grad()

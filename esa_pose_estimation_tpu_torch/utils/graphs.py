@@ -1,0 +1,221 @@
+"""CUDA graphs of the port's compiled programs: ``jax.jit``'s counterpart
+on the card.
+
+The JAX package runs its serving path (``pipeline.make_jitted_pipeline``),
+its eval tail (``eval/eval_cache.py``) and its synthetic training segment
+(``train/state.make_sharded_scan_step``) as compiled programs, one
+dispatch per call.  Eagerly, the port pays a host launch per kernel
+instead: about 12,000 of them in one serving call.  :class:`Graphed`
+captures a function once per key into a ``torch.cuda.CUDAGraph`` and
+replays it:
+
+* **key**: every tensor input's shape, dtype and device; every other
+  argument by value (a module by identity and train/eval mode); and the
+  module flags read at trace time (:func:`lever_flags`), as JAX reads
+  them when it traces.  A flag flipped after a capture selects another
+  graph.
+* **capture**: one warm-up call on a side stream (device constants made
+  on first use, the kernels' one-time set-up, cuDNN's plans), then the
+  capture into one memory pool shared by the live graphs of the process
+  (:func:`graph_pool`).  A capture that fails raises; nothing falls back
+  to eager on the card.
+* **replay**: the tensor inputs are copied into the graph's static
+  buffers, the graph replays, and the outputs are cloned, since JAX
+  returns fresh arrays and callers keep outputs across calls.  Cloning at
+  once also keeps the shared pool safe: no graph's output outlives the
+  next replay of another.
+* **CPU tensors** run the function eagerly: the caller asked for the CPU,
+  and CUDA graphs exist only on the card.
+
+A captured function draws nothing at random (the caller draws before the
+call and passes the draws in, as JAX passes its ``key``), reads nothing
+back to the host, and copies nothing from host memory.  It reads each
+module's parameters and buffers where they lie at capture: they may
+change in place (an optimizer step, ``load_state_dict``), but not be
+replaced.
+
+The kernels' launch counts (``peak_decode.launches`` and the others)
+follow the device: the capture launches nothing, so the counts it added
+are taken back, and each replay adds them again.
+"""
+
+from __future__ import annotations
+
+import time
+import weakref
+from typing import Callable, NamedTuple
+
+import torch
+from torch import nn
+
+_POOLS: dict[int, tuple] = {}
+
+
+def graph_pool(device: torch.device):
+    """The memory pool every live graph of this process captures into,
+    one per card: graphs replay one at a time on one stream, and each
+    caller clones a replay's outputs before the next replay.  A pool dies
+    with the last graph that used it; the next capture starts another."""
+    idx = torch.device(device).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    pool, live = _POOLS.get(idx, (None, None))
+    if not live:
+        pool, live = _POOLS[idx] = (torch.cuda.graph_pool_handle(),
+                                    weakref.WeakSet())
+    return pool, live
+
+
+def lever_flags() -> tuple[tuple[str, bool], ...]:
+    """The module flags the serving path reads while it runs, which JAX
+    reads at trace time: part of every key."""
+    from esa_pose_estimation_tpu_torch.models import hrnet, layers
+    from esa_pose_estimation_tpu_torch.ops import peak
+    return (('FUSED_CBAM', layers.FUSED_CBAM),
+            ('INT8_SERVING', layers.INT8_SERVING),
+            ('MERGED_FUSE', hrnet.MERGED_FUSE),
+            ('NHWC_DECODE', peak.NHWC_DECODE))
+
+
+def _freeze(x):
+    if isinstance(x, torch.Tensor):
+        return ('tensor', tuple(x.shape), x.dtype, str(x.device))
+    if isinstance(x, nn.Module):
+        return ('module', id(x), x.training)
+    if isinstance(x, torch.Generator):
+        raise TypeError('a graph cannot draw: draw before the call and pass '
+                        'the draws in')
+    if isinstance(x, (tuple, list)):
+        return (type(x).__name__, tuple(_freeze(v) for v in x))
+    if isinstance(x, dict):
+        return ('dict', tuple((k, _freeze(x[k])) for k in sorted(x)))
+    hash(x)                     # an unhashable value cannot key a graph
+    return ('value', type(x).__name__, x)
+
+
+def graph_key(args: tuple, kwargs: dict) -> tuple:
+    """The key of one call: positional and keyword arguments frozen
+    (tensors by shape, dtype and device; other values as they are), and
+    :func:`lever_flags`."""
+    return (_freeze(tuple(args)), _freeze(dict(kwargs)), lever_flags())
+
+
+def tree_map(fn, x):
+    """``fn`` on every tensor of nested tuples (named ones too), lists and
+    dicts; other leaves as they are."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, tuple) and hasattr(x, '_fields'):
+        return type(x)(*(tree_map(fn, v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(tree_map(fn, v) for v in x)
+    if isinstance(x, dict):
+        return {k: tree_map(fn, v) for k, v in x.items()}
+    return x
+
+
+def tensors_of(x) -> list[torch.Tensor]:
+    """The tensors of a tree, in :func:`tree_map`'s order."""
+    out: list[torch.Tensor] = []
+    tree_map(out.append, x)
+    return out
+
+
+def _counted() -> tuple:
+    """The kernel wrappers that count their launches."""
+    from esa_pose_estimation_tpu_torch.experimental.branch_chain import (
+        branch_chain,
+    )
+    from esa_pose_estimation_tpu_torch.experimental.cbam_fuse import (
+        fused_cbam,
+    )
+    from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
+        peak_decode,
+    )
+    return (peak_decode, fused_cbam, branch_chain)
+
+
+class Captured(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    outputs: object            # the graph's static outputs
+    launches: tuple[int, ...]  # kernel launches per replay, _counted()'s order
+    seconds: float             # the capture's host time
+    pool_bytes: int            # memory the capture added to the pool
+
+
+def capture(fn: Callable[[], object], device: torch.device) -> Captured:
+    """Capture ``fn()`` on ``device`` into the shared pool.  The caller has
+    warmed ``fn`` up; an error inside the capture raises."""
+    counters = _counted()
+    before = [c.launches for c in counters]
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    pool, live = graph_pool(device)
+    # thread_local: a loader thread's own CUDA calls stay legal meanwhile
+    with torch.cuda.graph(graph, pool=pool,
+                          capture_error_mode='thread_local'):
+        outputs = fn()
+    live.add(graph)
+    seconds = time.perf_counter() - t0
+    launches = tuple(c.launches - b for c, b in zip(counters, before))
+    for c, b in zip(counters, before):
+        c.launches = b                  # the capture launched nothing
+    return Captured(graph, outputs, launches, seconds,
+                    torch.cuda.memory_reserved(device) - reserved)
+
+
+def replay(cap: Captured) -> None:
+    cap.graph.replay()
+    for c, n in zip(_counted(), cap.launches):
+        c.launches += n
+
+
+def warm_up(fn: Callable[[], object], device: torch.device) -> None:
+    """One call of ``fn()`` on a side stream, as a capture wants it."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+
+
+class Graphed:
+    """``fn`` as one CUDA graph per :func:`graph_key` (see the module's
+    docstring).  ``entries`` maps each key to its :class:`Captured`, with
+    the static arguments the graph reads."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self.entries: dict[tuple, tuple[Captured, tuple, dict]] = {}
+
+    def __call__(self, *args, **kwargs):
+        inputs = tensors_of((args, kwargs))
+        if not inputs or inputs[0].device.type != 'cuda':
+            return self.fn(*args, **kwargs)
+        key = graph_key(args, kwargs)
+        entry = self.entries.get(key)
+        if entry is None:
+            entry = self.entries[key] = self._capture(args, kwargs,
+                                                      inputs[0].device)
+        cap, s_args, s_kwargs = entry
+        for buf, t in zip(tensors_of((s_args, s_kwargs)), inputs):
+            buf.copy_(t)
+        replay(cap)
+        return tree_map(torch.clone, cap.outputs)
+
+    def _capture(self, args, kwargs, device):
+        s_args, s_kwargs = tree_map(torch.clone, (args, kwargs))
+        with torch.cuda.device(device):
+            warm_up(lambda: self.fn(*s_args, **s_kwargs), device)
+            cap = capture(lambda: self.fn(*s_args, **s_kwargs), device)
+        return cap, s_args, s_kwargs
+
+    def stats(self) -> list[dict]:
+        """Per graph: capture seconds, pool bytes, kernel launches per
+        replay (K1, K2, K3)."""
+        return [{'seconds': c.seconds, 'pool_bytes': c.pool_bytes,
+                 'launches': dict(zip(('k1', 'k2', 'k3'), c.launches))}
+                for c, _, _ in self.entries.values()]

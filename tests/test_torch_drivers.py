@@ -265,13 +265,13 @@ def test_submit_defaults_are_the_jax_ones(monkeypatch, tmp_path, split):
     and with --flip-tta, and both partitions in the CSV."""
     pkl, root, _ = split
     seen = []
-    real = tsubmit.make_pipeline
+    real = tsubmit.make_jitted_pipeline
 
     def spy(model, points_3d, **kw):
         seen.append(kw)
         return real(model, points_3d, **{**kw, 'n_hypotheses': 4,
                                         'lm_iters': 1})
-    monkeypatch.setattr(tsubmit, 'make_pipeline', spy)
+    monkeypatch.setattr(tsubmit, 'make_jitted_pipeline', spy)
     path = tsubmit.main(['--artifact', ARTIFACT, '--workdir', str(tmp_path),
                          '--test-pkl', pkl, '--real-test-pkl', pkl,
                          '--image-root', root, '--batch-size', '3',

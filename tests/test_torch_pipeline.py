@@ -1,6 +1,8 @@
 """The whole serving slice: ``infer_poses`` of the port against the JAX
 package's, on the same frames, the same r5 weights (f32 in both) and the
 same RANSAC hypothesis masks (drawn by JAX, injected into the port).
+The port's ``make_jitted_pipeline`` (eager on CPU tensors) gives the same
+output as its ``infer_poses``, bit for bit, so JAX's at the same tolerances.
 
 The r5 model's heatmaps on the same crops: rtol 1e-3 / atol 1e-4 and the
 same argmax cell for >= 59 of the 60 maps (f32 in both frameworks, where
@@ -110,6 +112,22 @@ def test_pose_agreement(slice_run):
         tout.R, tout.trans, T(s.quat), T(s.trans)).speed.numpy()
     np.testing.assert_allclose(st, sj, atol=1e-4, rtol=0)
     assert st.max() < 0.02           # the trained net solves both frames
+
+
+def test_jitted_pipeline_matches_jax(slice_run):
+    """make_jitted_pipeline (eager on CPU tensors) with JAX's masks: the
+    same output as infer_poses, so the JAX make_jitted_pipeline's poses at
+    test_pose_agreement's tolerances."""
+    s, frames, boxes, model, masks, jout, tout, kw = slice_run
+    run = tpipe.make_jitted_pipeline(model, tsyn.spacecraft_points(),
+                                     ransac_masks=T(masks), **kw)
+    got = run(T(frames), T(boxes))
+    for name, a, b in zip(got._fields, got, tout):
+        assert torch.equal(a, b), name
+    assert _angle(got.R.numpy(), jout.R).max() <= 1e-3
+    rel = (np.linalg.norm(got.trans.numpy() - jout.trans, axis=-1)
+           / np.linalg.norm(jout.trans, axis=-1))
+    assert rel.max() <= 1e-3, rel
 
 
 def test_crop_split_is_exact(slice_run):

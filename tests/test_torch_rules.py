@@ -50,7 +50,7 @@ def test_port_imports_no_jax():
             'cli/dress_rehearsal.py', 'utils/torch_import.py',
             'obs/profiling.py', 'utils/device_probe.py',
             'utils/render_driver.py', 'data/db_builder.py', 'models/vgg.py',
-            'ops/pose_nms.py', 'ops/transforms.py'} <= names
+            'ops/pose_nms.py', 'ops/transforms.py', 'utils/graphs.py'} <= names
     bad = {str(f.relative_to(ROOT)): sorted(m for m in _imported_modules(f)
                                             if _forbidden(m))
            for f in files}
@@ -182,11 +182,13 @@ def test_cpu_entry_points_never_touch_cuda(monkeypatch, tmp_path):
 
 
 def test_cpu_training_never_touches_cuda(monkeypatch, tmp_path):
-    """A tiny training run with both augmentations and an eval, then
-    eval_synthetic --perturb and the artifact export on its checkpoint, on
-    the CPU: no CUDA call and no kernel build."""
+    """A tiny training run with both augmentations and an eval, through
+    the synthetic route's scan, then eval_synthetic --perturb and the
+    artifact export on its checkpoint, on the CPU: no CUDA call, no CUDA
+    graph and no kernel build."""
     from esa_pose_estimation_tpu_torch import _build
     from esa_pose_estimation_tpu_torch.cli import eval_synthetic, train
+    from esa_pose_estimation_tpu_torch.train import state as state_mod
     from esa_pose_estimation_tpu_torch.utils import artifact
 
     def refuse(*a, **k):
@@ -194,13 +196,23 @@ def test_cpu_training_never_touches_cuda(monkeypatch, tmp_path):
 
     monkeypatch.setattr(torch.cuda, '_lazy_init', refuse)
     monkeypatch.setattr(torch.cuda, 'current_stream', refuse)
+    monkeypatch.setattr(torch.cuda, 'graph_pool_handle', refuse)
+    monkeypatch.setattr(torch.cuda, 'CUDAGraph', refuse)
     monkeypatch.setattr(_build, 'load', refuse)
     monkeypatch.setattr(_build, 'build_all', refuse)
+    scans = []
+    real_scan = state_mod.make_scan_step
+
+    def scan_spy(*args, **kwargs):
+        scans.append(args[2])
+        return real_scan(*args, **kwargs)
+    monkeypatch.setattr(state_mod, 'make_scan_step', scan_spy)
     wd = str(tmp_path / 'run')
     train.main(['--workdir', wd, '--tiny', '--epochs', '1', '--batch-size',
                 '4', '--crop-size', '32', '--synthetic-size', '8',
                 '--eval-every', '1', '--augment-geom', '--augment-photo',
                 '--device', 'cpu'])
+    assert scans == [2]                 # the synthetic route's scan
     rec = eval_synthetic.main(['--workdir', wd, '--checkpoint', 'last',
                                '--tiny', '--crop-size', '32', '--frames',
                                '2', '--batch-size', '2', '--n-hypotheses',
