@@ -59,7 +59,8 @@ ground truth, and times the path.  Phases:
                  (loss rtol 1e-5, grad_norm 1e-4, running statistics 1e-5,
                  parameters within lr); (b) hrnet_esa from r5, bf16 over
                  f32 masters: steps/s, images/s, peak memory and share of
-                 the bf16 peak at batch 32 and 256, one batch-256 step
+                 the bf16 peak at batch 32 and 256, ms per step with and
+                 without fault 4's repair in turns, one batch-256 step
                  profiled (kernels, idle share, forward / backward /
                  optimizer); (c) 60 steps from r5 at batch 32 with
                  --augment-photo at lr 1e-5, every loss finite, then the
@@ -136,12 +137,28 @@ ground truth, and times the path.  Phases:
                  call, images/s, capture seconds, pool bytes, no host
                  wait around a replay; (e) the graphed EvalCache.infer
                  torch.equal to eager on phase 10's frames; (f)
-                 make_scan_step from r5, 8 steps at batch 32 and 256
-                 against two eager runs on the same draws (held to what
-                 one eager run gives against the other), ms per step both
-                 ways, peak memory; (g) cli.train on the synthetic route
-                 through the scan.  Phases 10, 11c, 12c-d, 13, 14 and 17
-                 run their commands, and so the graphs, as users do
+                 make_scan_step from r5, 8 steps at batch 32 and 256:
+                 two eager runs on the same draws torch.equal (fault 4),
+                 the graph torch.equal to the same steps launched one by
+                 one with capturable Adam, and within the stated
+                 tolerance of train_step's (Adam in f64 on the host); ms
+                 per step both ways, peak memory; (g) cli.train on the
+                 synthetic route through the scan.  Phases 10, 11c,
+                 12c-d, 13, 14 and 17 run their commands, and so the
+                 graphs, as users do; 13, 14, 16c and 17 count their
+                 graph calls and fail on an eager step on the card
+ 21. step graphs the compiled training programs: (a) fault 4, two eager
+                 runs of the detector and of ResNet-8s in both modes
+                 torch.equal; (b) fault 5, a serving graph and a training
+                 graph raise once their model's storage is replaced; (c)
+                 each training graph at its command's width (shard at 32
+                 from host crops and at 256 from frames, pickle at 32,
+                 the detector, LINEMOD's rendered scan of 16 steps and
+                 its real step in both modes) torch.equal to its steps
+                 launched one by one, eager and replay ms per step in
+                 turns, capture seconds, pool bytes, peak memory; (d)
+                 cli.train --train-pkl through its graph, K1 launches in
+                 its in-train eval
 
 Kernel and plain times (``ms``, ``plain_ms``) are means of eager calls
 between CUDA events, host cost included, as in earlier PRs; K1 and K2 are
@@ -157,19 +174,22 @@ shard-fed in-train evaluate, in phase 16's LINEMOD evals, in phase 17's
 rehearsal (in-train evals and cli.evaluate) and in phase 19b's
 cli.train_linemod from built DBs; for K1 and K2 in phase 18's imported
 reference checkpoint and, by the profiler, in one replay of phase 20's
-serving graph; a replay adds what its capture recorded to the counts,
-``utils/graphs.py``; error
+serving graph; in phase 21d's cli.train --train-pkl; a replay adds what
+its capture recorded to the counts, ``utils/graphs.py``; error
 against its plain version, times, bound); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -182,6 +202,7 @@ ROOT = Path(__file__).resolve().parent
 ARTIFACT = str(ROOT / 'artifacts' / 'esa_syn_r5.npz')
 SEED = 20261016
 DEVICE = 'cuda'
+WORK = ''       # main's scratch directory: phase 14's shards, reused by 21
 
 
 def log(msg: str) -> None:
@@ -1213,35 +1234,12 @@ def phase_commands(s, pts) -> None:
     """11c: the frames of 11a as a labelled PNG + pickle split in a
     temporary directory; cli.submit and cli.evaluate on the r5 artifact."""
     import csv
-    import pickle
-    import tempfile
-
-    import numpy as np
-    from PIL import Image
 
     from esa_pose_estimation_tpu_torch.cli import evaluate, submit
-    from esa_pose_estimation_tpu_torch.core import camera
     t0 = time.perf_counter()
-    frames = s.image.to(torch.uint8).cpu().numpy()
-    n = frames.shape[0]
-    R = camera.quat_to_rotmat(s.quat).cpu().numpy()
-    arrays = {k: getattr(s, k).cpu().numpy()
-              for k in ('bbox', 'keypoints_2d', 'quat', 'trans')}
+    n = s.image.shape[0]
     with tempfile.TemporaryDirectory() as root:
-        recs = []
-        for i in range(n):
-            name = f'img{(i * 37) % n:06d}.png'     # not in file order
-            Image.fromarray(frames[i]).save(f'{root}/{name}',
-                                            compress_level=1)
-            recs.append({'rgb_pth': name, 'bbox': arrays['bbox'][i],
-                         'sift': arrays['keypoints_2d'][i],
-                         'sift3d': pts.cpu().numpy(),
-                         'K': camera.SPEED_K.astype('float32'),
-                         'RT': np.concatenate(
-                             [R[i], arrays['trans'][i][:, None]], 1),
-                         'qua': arrays['quat'][i]})
-        with open(f'{root}/split.pkl', 'wb') as f:
-            pickle.dump(recs, f)
+        write_split(s, pts, root)
         t_write = time.perf_counter() - t0
         common = ['--artifact', ARTIFACT, '--test-pkl', f'{root}/split.pkl',
                   '--image-root', root, '--workdir', root]
@@ -1277,28 +1275,14 @@ EVAL_SEED, EVAL_BATCH, EVAL_FRAMES = 991, 32, 128
 TRAIN_PHASES = ('forward', 'backward', 'optimizer')
 
 
-def r5_masters():
-    """The r5 weights as a training model holds them: f32 parameters of
-    the bf16 hrnet_esa, on the card, in train layout (channels_last)."""
-    from esa_pose_estimation_tpu_torch.models.hrnet import HRNet
-    from esa_pose_estimation_tpu_torch.utils import config
-    from esa_pose_estimation_tpu_torch.utils.artifact import (
-        from_jax_variables,
-        read_artifact,
-    )
-    variables, _ = read_artifact(ARTIFACT)
-    model = HRNet(config.hrnet_esa(), dtype=torch.bfloat16)
-    model.load_state_dict(from_jax_variables(variables), strict=True)
-    return model.to(DEVICE, memory_format=torch.channels_last)
-
-
 def train_serving_form(s, pts) -> None:
     """12e: the r5 weights as f32 masters and in the loader's stored-bf16
     serving form serve phase 5's frames with the same heatmaps."""
+    from esa_pose_estimation_tpu_torch.cli.mfu_experiments import r5_masters
     from esa_pose_estimation_tpu_torch.utils.artifact import (
         load_hrnet_artifact,
     )
-    masters = r5_masters().eval()
+    masters = r5_masters(DEVICE).eval()
     serving = load_hrnet_artifact(ARTIFACT, dtype=torch.bfloat16,
                                   device=DEVICE)
     if masters.stem_conv1.weight.dtype != torch.float32:
@@ -1400,11 +1384,11 @@ def phased_step(st, batch) -> None:
     )
     model, opt = st.model, st.optimizer
     model.train()
-    with record_function('forward'):
+    with record_function('forward'), tstate.deterministic_cudnn():
         loss = weighted_heatmap_loss(model(batch['image']),
                                      batch['heatmaps'], batch['weights'])
         torch.cuda.synchronize()
-    with record_function('backward'):
+    with record_function('backward'), tstate.deterministic_cudnn():
         opt.zero_grad(set_to_none=True)
         loss.backward()
         tstate.global_norm([p.grad for p in model.parameters()
@@ -1468,14 +1452,49 @@ def profile_train(st, batch) -> None:
             'launches')
 
 
+def repair_cost(st, batches, iters: int) -> dict[str, float]:
+    """12b: ms per eager step with each half of fault 4's repair on and
+    off: the half-pixel resize's own backward or ``F.interpolate``'s
+    (which adds with atomics), cuDNN's deterministic algorithms or its
+    free choice; each of the four run twice, in the order ABCD DCBA.
+    Returns the mean of each, keyed 'resize/cudnn' with 'port' or
+    'interpolate' and 'det' or 'free'."""
+    import contextlib
+
+    from esa_pose_estimation_tpu_torch.cli.mfu_experiments import (
+        _free_cudnn,
+        _interpolate_backward,
+    )
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+
+    def run(port: bool, det: bool) -> float:
+        with (contextlib.nullcontext() if port
+              else _interpolate_backward()), (
+                contextlib.nullcontext() if det else _free_cudnn()):
+            tstate.train_step(st, batches[0])    # cuDNN's choice, untimed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(iters):
+                tstate.train_step(st, batches[i % 2])
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e3
+    order = [(p, d) for p in (True, False) for d in (True, False)]
+    runs: dict[tuple, list[float]] = {k: [] for k in order}
+    for key in order + order[::-1]:
+        runs[key].append(run(*key))
+    return {f'{"port" if p else "interpolate"}/{"det" if d else "free"}':
+            statistics.mean(v) for (p, d), v in runs.items()}
+
+
 def train_throughput(pts) -> dict[int, float]:
     """12b: full width from r5 (bf16 compute, f32 masters): steps/s,
     images/s, peak memory and share of the bf16 peak at batch 32 and 256,
     then the profile of a batch-256 step.  Returns images/s by batch."""
+    from esa_pose_estimation_tpu_torch.cli.mfu_experiments import r5_masters
     from esa_pose_estimation_tpu_torch.data import synthetic
     from esa_pose_estimation_tpu_torch.train import state as tstate
     from esa_pose_estimation_tpu_torch.utils import config
-    model = r5_masters()
+    model = r5_masters(DEVICE)
     fwd = conv_flops_per_image(model)
     log(f'train: hrnet_esa forward {fwd / 1e9:.2f} GFLOP of convolutions '
         f'per image, a step about 3x: {3 * fwd / 1e9:.1f} GFLOP per image')
@@ -1507,6 +1526,14 @@ def train_throughput(pts) -> dict[int, float]:
             f'{batch / dt:.1f} img/s ({dt * 1e3:.1f} ms per step), peak '
             f'memory {peak:.2f} GiB, {100 * share:.2f}% of the bf16 peak; '
             f'make_batch {make_ms:.1f} ms (not in the step)')
+        cost = repair_cost(st, batches, max(2, iters // 2))
+        log(f'train fault 4 repair at batch {batch}: ms per eager step '
+            f'with the resize\'s backward (port: tent products; '
+            f'interpolate: F.interpolate\'s atomics) and cuDNN '
+            f'(det: deterministic algorithms; free: its choice) '
+            f'{json.dumps({k: round(v, 1) for k, v in cost.items()})}; '
+            f'the repair is port/det; {max(2, iters // 2)} steps a run, '
+            f'each twice in the order ABCD DCBA')
         if batch == TRAIN_RUNS[0][0]:
             sites = sync_sites(lambda: tstate.train_step(st, batches[0]))
             log(f'train step batch {batch}: {sum(sites.values())} '
@@ -1570,6 +1597,7 @@ def train_finetune(pts) -> int:
     schedule's second rate, then the in-train evaluate on the 128 held-out
     frames of phase 10, before and after.  Returns K1's launches in the
     evaluation after."""
+    from esa_pose_estimation_tpu_torch.cli.mfu_experiments import r5_masters
     from esa_pose_estimation_tpu_torch.data import synthetic
     from esa_pose_estimation_tpu_torch.eval.eval_cache import EvalCache
     from esa_pose_estimation_tpu_torch.experimental.branch_chain import (
@@ -1580,7 +1608,7 @@ def train_finetune(pts) -> int:
     )
     from esa_pose_estimation_tpu_torch.train import state as tstate
     from esa_pose_estimation_tpu_torch.utils import config
-    model = r5_masters()
+    model = r5_masters(DEVICE)
     t0 = time.perf_counter()
     cache = EvalCache(model, held_out_batches(pts), pts)
     before, med0, _ = evaluate_with_medians(model, cache, pts)
@@ -1725,7 +1753,8 @@ def phase_detector(model, pts) -> int:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
         wd = f'{root}/det'
-        res = train_detector.main(['--workdir', wd, *DETECTOR_RECIPE])
+        with StepRoutes() as routes:
+            res = train_detector.main(['--workdir', wd, *DETECTOR_RECIPE])
         t_train = time.perf_counter() - t0
         with open(f'{wd}/events.jsonl') as f:
             epochs = [json.loads(line) for line in f]
@@ -1740,7 +1769,8 @@ def phase_detector(model, pts) -> int:
             f'(median; training alone {statistics.median(train_s):.2f}), '
             f'{1e3 * statistics.median(train_s) / steps:.1f} ms per step '
             f'with the frames rendered and perturbed on the card; loss '
-            f'first {losses[0]:.4f} last {losses[-1]:.4f}')
+            f'first {losses[0]:.4f} last {losses[-1]:.4f}; '
+            f'{routes.check("13 cli.train_detector")}')
         log(f'detector held-out (last epoch, {4 * 16} frames): clean mean '
             f'IoU {res["mean_iou"]:.4f} det@0.5 {res["detect_rate_50"]:.4f} '
             f'det@0.75 {res["detect_rate_75"]:.4f}; perturbed mean IoU '
@@ -1915,6 +1945,7 @@ def phase_shards(pts, synthetic_rates: dict[int, float]) -> int:
     import tempfile
 
     from esa_pose_estimation_tpu_torch.cli import train
+    from esa_pose_estimation_tpu_torch.cli.mfu_experiments import r5_masters
     from esa_pose_estimation_tpu_torch.data import native_loader, shards
     from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
         peak_decode,
@@ -1931,8 +1962,9 @@ def phase_shards(pts, synthetic_rates: dict[int, float]) -> int:
         paths = {}
         for kind, n in (('raw', SHARD_RAW_RECORDS),
                         ('png', SHARD_PNG_RECORDS)):
+            # the shards stay in WORK for phase 21
             t1 = time.perf_counter()
-            paths[kind] = f'{root}/{kind}.spd'
+            paths[kind] = f'{WORK}/{kind}.spd'
             shards.write_synthetic_shard(paths[kind], n,
                                          compressed=kind == 'png',
                                          batch=SHARD_WRITE_BATCH, seed=SEED,
@@ -1941,7 +1973,7 @@ def phase_shards(pts, synthetic_rates: dict[int, float]) -> int:
                 f'{Path(paths[kind]).stat().st_size / 1e6:.0f} MB, written '
                 f'in {time.perf_counter() - t1:.1f} s')
         check_shard_batches(paths['raw'], pts)
-        model = r5_masters()
+        model = r5_masters(DEVICE)
         st = tstate.create_train_state(model, config.TrainConfig())
         for kind, batch, host_crop, steps in SHARD_RUNS:
             r = shard_steps(st, paths[kind], batch, host_crop, steps)
@@ -1963,9 +1995,11 @@ def phase_shards(pts, synthetic_rates: dict[int, float]) -> int:
         t2 = time.perf_counter()
         wd = f'{root}/run'
         peak_decode.launches = 0
-        res = train.main(['--workdir', wd, '--train-shard', paths['raw'],
-                          '--host-crop', '--epochs', '1', '--batch-size',
-                          '32', '--eval-every', '1', *panel_args()])
+        with StepRoutes() as routes:
+            res = train.main(['--workdir', wd, '--train-shard',
+                              paths['raw'], '--host-crop', '--epochs', '1',
+                              '--batch-size', '32', '--eval-every', '1',
+                              *panel_args()])
         torch.cuda.synchronize()
         launches = peak_decode.launches
         with open(f'{wd}/events.jsonl') as f:
@@ -1975,6 +2009,7 @@ def phase_shards(pts, synthetic_rates: dict[int, float]) -> int:
             f'initialisation, 1 epoch of {SHARD_RAW_RECORDS // 32} steps, '
             f'eval on the shard\'s first 128 frames): epoch loss {loss:.5f}, '
             f'eval {json.dumps(res)}; K1 launches {launches}; '
+            f'{routes.check("14 cli.train --train-shard")}; '
             f'{time.perf_counter() - t2:.1f} s')
         if launches < 4 or not math.isfinite(loss):
             raise AssertionError(f'cli.train from the shard: loss {loss}, '
@@ -2199,7 +2234,9 @@ def linemod_commands(root: str) -> int:
         torch.cuda.reset_peak_memory_stats()
         peak_decode.launches = 0
         t0 = time.perf_counter()
-        res = train_linemod.main(['--workdir', wd, '--mode', mode, *LM_CLI])
+        with StepRoutes() as routes:
+            res = train_linemod.main(['--workdir', wd, '--mode', mode,
+                                      *LM_CLI])
         secs = time.perf_counter() - t0
         n_k1 = peak_decode.launches
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2218,8 +2255,9 @@ def linemod_commands(root: str) -> int:
             f'{" ".join(LM_CLI)}: losses {losses}, triple {json.dumps(res)}, '
             f'epoch 2 {step_ms:.2f} ms/step ({LM_BATCH * 1e3 / step_ms:.0f} '
             f'images/s; epoch 1 {epochs[0]["train_seconds"]:.2f} s with the '
-            f'warm-up), peak memory {peak:.2f} GiB, K1 launches in the eval '
-            f'{n_k1}, command {secs:.1f} s')
+            f'warm-up, capture), peak memory {peak:.2f} GiB, K1 launches in '
+            f'the eval {n_k1}, {routes.check("16c " + mode)}, command '
+            f'{secs:.1f} s')
         if mode == 'heatmap':
             launches = n_k1
     return launches
@@ -2432,6 +2470,11 @@ def panel_args() -> list[str]:
     return ['--no-panels']
 
 
+# cli.train's seconds in this phase on the eager per-step shard route that
+# preceded its graph: that tree's phase 17 alone in a fresh process, two
+# runs in turns with this tree's (14.7 and 14.7 s the same way), on an H100
+# 80GB HBM3 at 700 W
+EAGER_REHEARSAL_TRAIN_S = '16.7 and 13.4'
 REHEARSAL = ('--n-train', '64', '--n-test', '32', '--n-real-test', '16',
              '--epochs', '2', '--batch-size', '32', '--eval-every', '1')
 
@@ -2485,7 +2528,8 @@ def phase_rehearsal() -> tuple[int, int]:
     no_panels = panel_args()
     with tempfile.TemporaryDirectory() as root:
         wd = f'{root}/run'
-        with StageLaunches(train=train_cli, evaluate=eval_cli) as stages:
+        with StageLaunches(train=train_cli, evaluate=eval_cli) as stages, \
+                StepRoutes() as routes:
             out = dress_rehearsal.main(['--root', root, '--workdir', wd,
                                         *REHEARSAL, *no_panels])
         k1_train, k1_eval = stages.counts['train'][0], \
@@ -2525,7 +2569,10 @@ def phase_rehearsal() -> tuple[int, int]:
             f'{out["eval_score_r"]} speed {out["eval_speed"]}, CSV '
             f'{len(csv_rows)} rows of 8 fields in filename order; K1 '
             f'launches {k1_train} in the in-train evals, {k1_eval} in '
-            f'cli.evaluate')
+            f'cli.evaluate; cli.train through the shard route\'s graph: '
+            f'{routes.check("17 cli.train")}, {out["timing"]["train_s"]} s '
+            f'(the eager per-step route, phase 17 alone in a fresh process: '
+            f'{EAGER_REHEARSAL_TRAIN_S} s)')
         r5 = eval_cli.main(['--artifact', ARTIFACT, '--workdir', f'{root}/r5',
                             '--test-pkl', f'{root}/test.pkl', '--image-root',
                             f'{root}/images/test', '--batch-size', '32'])
@@ -3038,6 +3085,25 @@ def graphs_timing(model, pts) -> None:
             f'+{st["pool_bytes"] / 2**20:.0f} MiB')
         check_no_host_wait(f'graphs 20d replay at batch {batch}',
                            lambda: jitted(f, bx, rgen))
+        if batch == 1:
+            storage_check_cost(jitted, g_ms)
+
+
+def storage_check_cost(jitted, replay_ms: float) -> None:
+    """20d (fault 5): the host time of the storage check that precedes
+    every replay (``utils/graphs.check_pointers``), at batch 1 serving."""
+    from esa_pose_estimation_tpu_torch.utils import graphs
+    cap = next(iter(jitted.graphs.entries.values()))[0]
+    n = 1000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        graphs.check_pointers(cap.pointers,
+                              graphs.storage_pointers(cap.reads()))
+    us = (time.perf_counter() - t0) / n * 1e6
+    log(f'graphs 20d fault 5: the storage check before a batch-1 serving '
+        f'replay reads {len(cap.pointers)} pointers in {us:.1f} us of host '
+        f'time ({100 * us / (replay_ms * 1e3):.2f}% of the '
+        f'{replay_ms:.2f} ms replay)')
 
 
 def graphs_eval(pts) -> None:
@@ -3045,8 +3111,9 @@ def graphs_eval(pts) -> None:
     infer_poses_from_crops on phase 10's 128 frames, every output
     torch.equal."""
     from esa_pose_estimation_tpu_torch import pipeline
+    from esa_pose_estimation_tpu_torch.cli.mfu_experiments import r5_masters
     from esa_pose_estimation_tpu_torch.eval.eval_cache import EvalCache
-    model = r5_masters().eval()
+    model = r5_masters(DEVICE).eval()
     cache = EvalCache(model, held_out_batches(pts), pts)
     for i, b in enumerate(cache.batches):
         got = cache.infer(model, b, torch.Generator(
@@ -3085,17 +3152,24 @@ def _train_diff(a, b, start: list[torch.Tensor]) -> dict:
 
 def graphs_scan(pts) -> None:
     """20f: from r5, make_scan_step's graph of SCAN_STEPS steps at batch 32
-    and 256 against two runs of as many eager train_steps on the same
-    draws.  The backward pass is not deterministic on the card (two eager
-    runs differ from the second step on), so the graph is held to what
-    one eager run gives against the other: the first loss torch.equal
-    (the forward is); the update vector within 1.25 times the eager runs'
-    relative difference, and the parameters within 2 lr a step; running
-    statistics within a tenth of how far training moved them; losses
-    within 2^-7 relative (two bf16 rounding steps).  Then ms per step, eager and graph in turns (the second eager
-    run, two replays, an eager run after the graph is freed: at batch 256
-    its pool and an eager step do not fit together), and the scan's peak
-    memory."""
+    and 256 against eager steps on the same draws.  Fault 4 is closed
+    (ROADMAP.md section 3): two eager runs of train_step are torch.equal
+    in losses, parameters and running statistics, and the graph is
+    torch.equal to the same steps launched one by one with its optimizer
+    arithmetic (``StepGraph.run_eagerly``: capturable Adam, a tensor
+    rate).  Against train_step the Adam arithmetic differs (capturable
+    Adam takes its bias correction in f32 on the card, train_step's in f64
+    on the host), so there the stated tolerance holds: the first loss
+    torch.equal; parameters within 2 lr a step; running statistics within
+    a tenth of how far training moved them; losses within 2^-7 relative
+    (two bf16 rounding steps).  Then ms per step, eager and graph in turns
+    (the second eager run, two replays, an eager run after the graph is
+    freed: at batch 256 its pool and an eager step do not fit together),
+    and the scan's peak memory."""
+    from esa_pose_estimation_tpu_torch.cli.mfu_experiments import (
+        trained_equal,
+    )
+    from esa_pose_estimation_tpu_torch.cli.mfu_experiments import r5_masters
     from esa_pose_estimation_tpu_torch.data import synthetic
     from esa_pose_estimation_tpu_torch.train import state as tstate
     from esa_pose_estimation_tpu_torch.utils import config
@@ -3105,13 +3179,13 @@ def graphs_scan(pts) -> None:
             draw=lambda g, b=batch: synthetic.draw_batch(g, b, device=DEVICE),
             make=lambda d, b=batch: synthetic.make_batch(None, b, pts,
                                                          draws=d))
-        e1, e2, sc = (tstate.create_train_state(r5_masters(), cfg, 1000)
-                      for _ in range(3))
+        e1, e2, e3, sc = (tstate.create_train_state(r5_masters(DEVICE), cfg,
+                                                    1000) for _ in range(4))
         start = [p.detach().clone() for p in e1.model.parameters()]
         buffers = [b.detach().clone() for b in e1.model.buffers()]
         lr = e1.schedule(0)
-        g1, g2, gs = (torch.Generator(device=DEVICE).manual_seed(SEED + 40)
-                      for _ in range(3))
+        g1, g2, g3, gs = (torch.Generator(device=DEVICE).manual_seed(
+            SEED + 40) for _ in range(4))
 
         def eager_steps(st, g):
             return torch.stack([
@@ -3126,34 +3200,39 @@ def graphs_scan(pts) -> None:
             return out, (time.perf_counter() - t0) / SCAN_STEPS * 1e3
         want, _ = timed(lambda: eager_steps(e1, g1))
         again, e_first = timed(lambda: eager_steps(e2, g2))
+        twin = tstate.StepGraph(e3, lambda m, d: tstate.heatmap_step_loss(
+            m, fn.make(d)), SCAN_STEPS, torch.device(DEVICE))
+        same = twin.run_eagerly([fn.draw(g3) for _ in range(SCAN_STEPS)])
+        del twin
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         scan = tstate.make_scan_step(sc, fn, SCAN_STEPS)
         got, first_ms = timed(lambda: scan(gs))
         peak = torch.cuda.max_memory_allocated() / 2**30
-        spread = _train_diff(e2.model, e1.model, start)
+        pair = torch.equal(want, again) and trained_equal(e1, e2)
+        graph = torch.equal(got, same) and trained_equal(sc, e3)
         diff = _train_diff(sc.model, e1.model, start)
         moved = max(float(((x - y).abs() / (1 + y.abs())).max())
                     for x, y in zip(e1.model.buffers(), buffers))
         rel = float(((got - want).abs() / want.abs()).max())
-        rel2 = float(((again - want).abs() / want.abs()).max())
-        log(f'graphs 20f batch {batch}: {SCAN_STEPS} steps at lr {lr:g} as '
-            f'one graph against eager train_steps on the same draws (a '
-            f'second eager run against the first in brackets): first loss '
-            f'equal {bool(got[0] == want[0])} ({bool(again[0] == want[0])}); '
-            f'losses rel {rel:.3g} ({rel2:.3g}; limit {2 * BF16_REL:.3g}); '
-            f'update rel {diff["update"]:.3g} ({spread["update"]:.3g}); '
-            f'parameters max {diff["params"]:.3g} ({spread["params"]:.3g}; '
-            f'limit {2 * lr * SCAN_STEPS:.3g}); running statistics '
-            f'{diff["stats"]:.3g} ({spread["stats"]:.3g}; moved {moved:.3g}); '
-            f'steps {e1.step}, {sc.step}')
-        if not (bool(got[0] == want[0]) and rel <= 2 * BF16_REL
-                and diff['update'] <= 1.25 * spread['update']
+        log(f'graphs 20f batch {batch}: {SCAN_STEPS} steps at lr {lr:g}; '
+            f'fault 4: two eager runs of train_step torch.equal in losses, '
+            f'parameters and statistics {pair}; the graph against the same '
+            f'steps launched one by one (capturable Adam) torch.equal '
+            f'{graph}; against train_step (Adam in f64 on the host): first '
+            f'loss equal {bool(got[0] == want[0])}, losses rel {rel:.3g} '
+            f'(limit {2 * BF16_REL:.3g}), update rel {diff["update"]:.3g}, '
+            f'parameters max {diff["params"]:.3g} (limit '
+            f'{2 * lr * SCAN_STEPS:.3g}), running statistics '
+            f'{diff["stats"]:.3g} (moved {moved:.3g}); steps {e1.step}, '
+            f'{sc.step}')
+        if not (pair and graph and bool(got[0] == want[0])
+                and rel <= 2 * BF16_REL
                 and diff['params'] <= 2 * lr * SCAN_STEPS
                 and diff['stats'] <= 0.1 * moved and sc.step == e1.step):
-            raise AssertionError(f'graphs 20f batch {batch}: {diff} against '
-                                 f'{spread}, losses rel {rel}')
-        del e2
+            raise AssertionError(f'graphs 20f batch {batch}: pair {pair}, '
+                                 f'graph {graph}, {diff}, losses rel {rel}')
+        del e2, e3
         runs = [e_first, timed(lambda: scan(gs))[1],
                 timed(lambda: scan(gs))[1]]
         cap_s, cap_bytes = scan.capture.seconds, scan.capture.pool_bytes
@@ -3230,7 +3309,365 @@ def phase_graphs(model, pts, s) -> tuple[int, int]:
     return replay
 
 
+class StepRoutes:
+    """Counts, while open, the calls of the training programs' graphs
+    (``train/state.StepGraph``) and the eager optimizer steps on the card
+    (``train/state.optimize``): a command that trains through its graph
+    takes none of the latter."""
+
+    def __enter__(self):
+        from esa_pose_estimation_tpu_torch.train import state as tstate
+        self.tstate, self.graph_calls, self.eager_steps = tstate, 0, 0
+        self.real = real_call, real_opt = (tstate.StepGraph.__call__,
+                                           tstate.optimize)
+
+        def call(graph, inputs):
+            self.graph_calls += 1
+            return real_call(graph, inputs)
+
+        def optimize(state, loss_fn):
+            if next(state.model.parameters()).is_cuda:
+                self.eager_steps += 1
+            return real_opt(state, loss_fn)
+        tstate.StepGraph.__call__, tstate.optimize = call, optimize
+        return self
+
+    def __exit__(self, *exc):
+        self.tstate.StepGraph.__call__, self.tstate.optimize = self.real
+
+    def check(self, label: str) -> str:
+        if self.graph_calls == 0 or self.eager_steps:
+            raise AssertionError(f'{label}: {self.graph_calls} graph calls, '
+                                 f'{self.eager_steps} eager steps on the '
+                                 'card')
+        return (f'{self.graph_calls} graph calls, no eager step on the '
+                f'card')
+
+
+# phase 21: steps of each per-step program, steps of the LINEMOD epoch
+# graph (the command captures --steps-per-epoch, 50)
+STEP_PROGRAM_STEPS = 4
+LM_SCAN_STEPS = 16
+
+
+def determinism_pairs() -> None:
+    """21a (fault 4): two eager runs of 4 steps from one start on one set
+    of draws, the detector at the JAX round-5 recipe and ResNet-8s in both
+    LINEMOD modes (hrnet_esa's pairs are 20f's): losses, parameters and
+    running statistics torch.equal.  Each pair starts with cuDNN's
+    determinism flag off, as serving leaves it: the training path turns it
+    on for its steps (``train/state.deterministic_cudnn``) and off again,
+    which is checked after each pair."""
+    from esa_pose_estimation_tpu_torch.cli import mfu_experiments as mfu
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+    for case in mfu.training_cases(torch.device(DEVICE), 4,
+                                   hrnet_batches=(), seed=SEED):
+        torch.backends.cudnn.deterministic = False
+        a, b = case.make_state(), case.make_state()
+        la = tstate.run_steps(a, case.loss_fn, case.inputs)
+        lb = tstate.run_steps(b, case.loss_fn, case.inputs)
+        equal = torch.equal(la, lb) and mfu.trained_equal(a, b)
+        log(f'step graphs 21a fault 4 {case.name}: two eager runs of '
+            f'{len(case.inputs)} steps bit-equal {equal} from cuDNN\'s '
+            f'flag off, the flag after them '
+            f'{torch.backends.cudnn.deterministic} (losses '
+            f'{[round(v, 6) for v in la.tolist()]})')
+        if not equal:
+            raise AssertionError(f'21a {case.name}: two eager runs differ')
+        if torch.backends.cudnn.deterministic:
+            raise AssertionError(f'21a {case.name}: the training steps '
+                                 'left cuDNN\'s determinism flag on')
+        del a, b, case
+    torch.cuda.empty_cache()
+
+
+def storage_check() -> None:
+    """21b (fault 5): a serving graph and a training graph raise at their
+    next call once their model's storage is replaced
+    (``load_state_dict(..., assign=True)``; the serving form's cast)."""
+    from esa_pose_estimation_tpu_torch import pipeline
+    from esa_pose_estimation_tpu_torch.cli.mfu_experiments import r5_masters
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.models import layers
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+    from esa_pose_estimation_tpu_torch.utils import config
+    pts = synthetic.spacecraft_points(device=DEVICE)
+    s = synthetic.make_sample(torch.Generator(device=DEVICE).manual_seed(
+        SEED + 50), pts, 1)
+    raised = []
+    for replace in ('assign', 'compute_dtype'):
+        model = r5_masters(DEVICE).eval()
+        jitted = pipeline.make_jitted_pipeline(model, pts)
+        jitted(s.image, s.bbox)
+        if replace == 'assign':
+            model.load_state_dict({k: v.clone() for k, v in
+                                   model.state_dict().items()}, assign=True)
+        else:
+            layers.store_in_compute_dtype(model)
+        try:
+            jitted(s.image, s.bbox)
+        except RuntimeError as e:
+            raised.append(f'serving/{replace}: {str(e)[:60]}...')
+        del jitted, model
+    st = tstate.create_train_state(r5_masters(DEVICE), config.TrainConfig())
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 51)
+    fn = tstate.BatchFn(
+        draw=lambda gen: synthetic.draw_batch(gen, 8, device=DEVICE),
+        make=lambda d: synthetic.make_batch(None, 8, pts, draws=d))
+    scan = tstate.make_scan_step(st, fn, 1)
+    scan(g)
+    st.model.load_state_dict({k: v.clone() for k, v in
+                              st.model.state_dict().items()}, assign=True)
+    try:
+        scan(g)
+    except RuntimeError as e:
+        raised.append(f'training/assign: {str(e)[:60]}...')
+    log(f'step graphs 21b fault 5: {len(raised)} of 3 calls after the '
+        f'storage was replaced raised: {raised}')
+    if len(raised) != 3:
+        raise AssertionError(f'21b: only {raised} raised')
+    del scan, st
+    torch.cuda.empty_cache()
+
+
+def write_split(s, pts, root: str) -> str:
+    """The frames of ``s`` as PNGs under ``root`` and their labels as a
+    pickle split (the reference's layout); returns the split's path."""
+    import pickle
+
+    import numpy as np
+    from PIL import Image
+
+    from esa_pose_estimation_tpu_torch.core import camera
+    frames = s.image.to(torch.uint8).cpu().numpy()
+    n = frames.shape[0]
+    R = camera.quat_to_rotmat(s.quat).cpu().numpy()
+    arrays = {k: getattr(s, k).cpu().numpy()
+              for k in ('bbox', 'keypoints_2d', 'quat', 'trans')}
+    recs = []
+    for i in range(n):
+        name = f'img{(i * 37) % n:06d}.png'     # not in file order
+        Image.fromarray(frames[i]).save(f'{root}/{name}', compress_level=1)
+        recs.append({'rgb_pth': name, 'bbox': arrays['bbox'][i],
+                     'sift': arrays['keypoints_2d'][i],
+                     'sift3d': pts.cpu().numpy(),
+                     'K': camera.SPEED_K.astype('float32'),
+                     'RT': np.concatenate([R[i], arrays['trans'][i][:, None]],
+                                          1),
+                     'qua': arrays['quat'][i]})
+    with open(f'{root}/split.pkl', 'wb') as f:
+        pickle.dump(recs, f)
+    return f'{root}/split.pkl'
+
+
+def real_linemod_batches(n: int) -> list[dict]:
+    """``n`` real-layout LINEMOD batches of 16 made on the card from a seed:
+    480x640 RGB frames of noise, a disc as the object's mask, its box and
+    9 keypoints inside it."""
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 61)
+    yy = torch.arange(480, device=DEVICE)[:, None]
+    xx = torch.arange(640, device=DEVICE)[None, :]
+    out = []
+    for _ in range(n):
+        c = 200 + 240 * torch.rand((16, 2), generator=g, device=DEVICE)
+        c[:, 1] -= 40
+        r = 40 + 30 * torch.rand((16,), generator=g, device=DEVICE)
+        mask = (((xx - c[:, 0, None, None]) ** 2
+                 + (yy - c[:, 1, None, None]) ** 2)
+                < r[:, None, None] ** 2).to(torch.float32)
+        out.append({
+            'frame': torch.floor(255 * torch.rand(
+                (16, 480, 640, 3), generator=g, device=DEVICE)),
+            'bbox': torch.stack([c[:, 0] - r, c[:, 1] - r, c[:, 0] + r,
+                                 c[:, 1] + r], -1),
+            'keypoints_2d': c[:, None] + r[:, None, None] * (torch.rand(
+                (16, 9, 2), generator=g, device=DEVICE) - 0.5),
+            'mask': mask})
+    return out
+
+
+def step_programs(shard_path: str, split_path: str) -> list:
+    """21c: the compiled training programs of this slice at their
+    commands' width, each as (name, make_state, per-call inputs, loss_fn,
+    steps per call, batch): the shard route at 32 from host crops and at
+    256 from raw frames, the pickle route at 32, the detector at the JAX
+    round-5 recipe, LINEMOD's epoch scan and real step in both modes."""
+    from esa_pose_estimation_tpu_torch.cli import mfu_experiments as mfu
+    from esa_pose_estimation_tpu_torch.cli import train_linemod as tlm
+    from esa_pose_estimation_tpu_torch.data import pipeline as dp
+    from esa_pose_estimation_tpu_torch.data import speed as speed_data
+    from esa_pose_estimation_tpu_torch.data.native_loader import (
+        NativeBatchLoader,
+    )
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+    from esa_pose_estimation_tpu_torch.utils import config
+    n = STEP_PROGRAM_STEPS
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 62)
+
+    def hrnet_state():
+        return tstate.create_train_state(mfu.r5_masters(DEVICE),
+                                         config.TrainConfig())
+
+    def shard_inputs(batch, crop):
+        with NativeBatchLoader(shard_path, batch, shuffle=False,
+                               crop_size=crop, device=DEVICE) as loader:
+            host = list(itertools.islice(iter(loader), 2))
+        batches = [{k: v.to(DEVICE) for k, v in b.items()
+                    if isinstance(v, torch.Tensor)} for b in host]
+        return [[dp.step_inputs(batches[i % 2], g)] for i in range(n)]
+
+    def data_loss(m, x):
+        return dp.step_loss(m, x)
+    records = speed_data.records_from_pickle(split_path,
+                                             str(Path(split_path).parent))
+    pkl = [{k: torch.as_tensor(b[k]).to(DEVICE) for k in dp.STEP_KEYS
+            if k in b}
+           for b in speed_data.BatchLoader(records, 32, shuffle=False)]
+    out = [('shard_b32_host_crop', hrnet_state, shard_inputs(32, 128),
+            data_loss, 1, 32),
+           ('shard_b256_frames', hrnet_state, shard_inputs(256, None),
+            data_loss, 1, 256),
+           ('pickle_b32', hrnet_state,
+            [[dp.step_inputs(pkl[i % len(pkl)], g)] for i in range(n)],
+            data_loss, 1, 32)]
+    det, = mfu.training_cases(torch.device(DEVICE), n, hrnet_batches=(),
+                              linemod=(), seed=SEED + 1)
+    out.append(('detector', det.make_state, [[x] for x in det.inputs],
+                det.loss_fn, 1, 16))
+    lm = mfu.training_cases(torch.device(DEVICE), LM_SCAN_STEPS,
+                            hrnet_batches=(), detector=False, seed=SEED + 2)
+    for case in lm:
+        out.append((f'linemod_scan_{case.name.split("_")[-1]}',
+                    case.make_state, [case.inputs], case.loss_fn,
+                    LM_SCAN_STEPS, 16))
+    real = real_linemod_batches(2)
+    for case in lm:
+        mode = case.name.split('_')[-1]
+        out.append((f'linemod_real_{mode}', case.make_state,
+                    [[tlm.real_step_inputs(real[i % 2], 128, True, g,
+                                           DEVICE)] for i in range(n)],
+                    lambda m, x, mode=mode: tlm.real_step_loss(m, x, mode,
+                                                                128),
+                    1, 16))
+    return out
+
+
+def check_program(name, make_state, calls, loss_fn, n_inner, batch) -> None:
+    """21c for one program: its graph against the same steps launched one
+    by one with the same optimizer arithmetic (capturable Adam, a tensor
+    rate: ``StepGraph.run_eagerly``), every loss and the state after the
+    last torch.equal; ms per step of the eager route (``run_steps``: the
+    per-step loop as it ran before) and of the replays, in turns (eager,
+    graph, graph, eager; the graph freed before the last: at batch 256 its
+    pool and an eager step do not fit together); capture seconds, pool
+    bytes, peak memory."""
+    from esa_pose_estimation_tpu_torch.cli import mfu_experiments as mfu
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+    steps = n_inner * len(calls)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = torch.cat([fn(x) for x in calls])
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / steps * 1e3
+    a = make_state()
+    twin = tstate.StepGraph(a, loss_fn, n_inner, torch.device(DEVICE))
+    want, _ = timed(twin.run_eagerly)
+    del twin
+    e = make_state()
+    _, e1 = timed(lambda x: tstate.run_steps(e, loss_fn, x))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    b = make_state()
+    graph = tstate.make_train_steps(b, loss_fn, n_inner)
+    got, first = timed(graph)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    equal = (bool(got[0] == want[0]), torch.equal(got, want),
+             mfu.trained_equal(a, b))
+    del a
+    g1, g2 = timed(graph)[1], timed(graph)[1]
+    cap_s, cap_gib = graph.capture.seconds, graph.capture.pool_bytes / 2**30
+    del graph, b                         # the graph and its pool with them
+    torch.cuda.empty_cache()
+    e2 = timed(lambda x: tstate.run_steps(e, loss_fn, x))[1]
+    del e
+    torch.cuda.empty_cache()
+    e_ms, g_ms = (e1 + e2) / 2, (g1 + g2) / 2
+    log(f'step graphs 21c {name}: {steps} steps of batch {batch}, '
+        f'{n_inner} per graph call; against the same steps launched one by '
+        f'one (capturable Adam): first loss equal {equal[0]}, losses equal '
+        f'{equal[1]}, parameters and statistics equal {equal[2]}; eager '
+        f'{e_ms:.1f} ms per step ({batch / e_ms * 1e3:.1f} img/s; runs '
+        f'{e1:.1f}, {e2:.1f}), replay {g_ms:.1f} ms per step '
+        f'({batch / g_ms * 1e3:.1f} img/s; runs {g1:.1f}, {g2:.1f}); first '
+        f'call (warm-up, capture, replay) {first * steps / 1e3:.2f} s, '
+        f'capture {cap_s:.2f} s, pool +{cap_gib:.2f} GiB, peak memory '
+        f'{peak:.2f} GiB')
+    if not all(equal):
+        raise AssertionError(f'21c {name}: graph against eager {equal}')
+
+
+def pickle_command(split_path: str) -> int:
+    """21d: cli.train --train-pkl on phase 11c's 64 frames, one epoch of 2
+    steps at batch 32 through the pickle route's graph, its in-train eval
+    on the same split: finite loss, no eager step on the card, K1
+    launches.  Returns them."""
+    import tempfile
+
+    from esa_pose_estimation_tpu_torch.cli import train
+    from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
+        peak_decode,
+    )
+    root = str(Path(split_path).parent)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as wd, StepRoutes() as routes:
+        peak_decode.launches = 0
+        res = train.main(['--workdir', wd, '--train-pkl', split_path,
+                          '--test-pkl', split_path, '--image-root', root,
+                          '--epochs', '1', '--batch-size', '32',
+                          '--eval-every', '1', *panel_args()])
+        torch.cuda.synchronize()
+        launches = peak_decode.launches
+        rows = Path(wd, 'log_esa.txt').read_text().split('\n')
+    loss = float(rows[1].split('\t')[2])
+    log(f'step graphs 21d cli.train --train-pkl (hrnet_esa, 64 PNG frames, '
+        f'2 steps at batch 32): epoch loss {loss:.5f}, eval speed '
+        f'{res["speed"]:.5f}; {routes.check("21d")}; K1 launches {launches}'
+        f' in the in-train eval; {time.perf_counter() - t0:.1f} s')
+    if not math.isfinite(loss) or launches < 2:
+        raise AssertionError(f'21d: loss {loss}, K1 {launches}')
+    return launches
+
+
+def phase_step_graphs(s, pts) -> int:
+    """21: faults 4 and 5, then the compiled training programs as CUDA
+    graphs (21c) and the pickle route's command (21d).  Returns K1's
+    launches in that command's in-train eval."""
+    import tempfile
+    t0 = time.perf_counter()
+    determinism_pairs()
+    storage_check()
+    with tempfile.TemporaryDirectory() as root:
+        split = write_split(s, pts, root)
+        for program in step_programs(f'{WORK}/raw.spd', split):
+            check_program(*program)
+            del program
+        launches = pickle_command(split)
+    log(f'step graphs: phase {time.perf_counter() - t0:.1f} s')
+    return launches
+
+
 def main() -> None:
+    global WORK
+    WORK = tempfile.mkdtemp(prefix='chip_smoke_')
+    try:
+        run()
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+
+
+def run() -> None:
     t_start = time.perf_counter()
     phase_device()
     import_port()
@@ -3266,6 +3703,7 @@ def main() -> None:
     k1['launches_linemod_db_eval'] = phase_tooling()
     (k1['launches_graph_replay'],
      k2['launches_graph_replay']) = phase_graphs(model, pts, frames)
+    k1['launches_pickle_train_eval'] = phase_step_graphs(planted, pts)
     log(f'total: {time.perf_counter() - t_start:.1f} s')
     # graph_ms / plain_graph_ms (K1 and K2): the same calls replayed from a
     # CUDA graph, beside ms / plain_ms by eager calls as in earlier PRs;
@@ -3284,7 +3722,8 @@ def main() -> None:
     # launches_linemod_db_eval (K1): in phase 19b's cli.train_linemod from
     # the DBs db_builder made; launches_graph_replay (K1 and K2): device
     # kernels in one replay of phase 20's FUSED_CBAM serving graph, by the
-    # profiler
+    # profiler; launches_pickle_train_eval (K1): in the in-train evaluate of
+    # phase 21d's cli.train --train-pkl (two batches of 32 frames)
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
             'graph_ms', 'plain_graph_ms', 'launches_two_stage',
@@ -3292,7 +3731,7 @@ def main() -> None:
             'launches_shard_train_eval', 'launches_linemod_eval',
             'launches_rehearsal_train_eval', 'launches_rehearsal_evaluate',
             'launches_imported_checkpoint', 'launches_linemod_db_eval',
-            'launches_graph_replay')
+            'launches_graph_replay', 'launches_pickle_train_eval')
     print(json.dumps({'kernels': [{k: rec[k] for k in keys if k in rec}
                                   for rec in (k1, k2, k3)]}))
     print(json.dumps({'ok': True, 'device': {

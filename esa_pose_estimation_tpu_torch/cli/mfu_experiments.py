@@ -1,7 +1,8 @@
 """Utilization experiments on one NVIDIA H100.
 
     python -m esa_pose_estimation_tpu_torch.cli.mfu_experiments [--chain |
-        --int8 | --int8-matmul | --cluster-sweep | --repeat | --k2-case]
+        --int8 | --int8-matmul | --cluster-sweep | --repeat | --k2-case |
+        --determinism]
 
 Port of the JAX package's ``scripts/mfu_experiments.py``.  Every mode times
 on the card with CUDA events and reports its share of the card's bf16
@@ -40,6 +41,21 @@ CUDA device.  Modes:
   at every batch serving gives them (1, 64, 256; 1, 32, 64, 256), each
   launched many times on one input: the count of launches whose output
   is not bit-equal to the first.  Nothing is timed.
+* ``--determinism``: the training steps' determinism (ROADMAP.md
+  section 3, fault 4).  One step each of ``hrnet_esa`` from r5 at batch
+  32, the ``TinyDetector`` at the JAX round-5 recipe and ResNet-8s in both
+  LINEMOD modes (:func:`training_cases`) under
+  ``torch.use_deterministic_algorithms(True, warn_only=True)``, with
+  ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set in this process only: the ops
+  with no deterministic CUDA kernel, by the warnings on standard error
+  (the backward's threads print them there), once with the
+  half-pixel resize's backward as ``F.interpolate``'s and once with the
+  port's (``models/layers._HalfPixelResize``).  Then, with the flag off,
+  two eager runs of 4 steps of each case from one start on one set of
+  draws, with cuDNN's free choice of algorithms and with its
+  deterministic ones (the training path's,
+  ``train/state.deterministic_cudnn``), both backwards: whether losses,
+  parameters and statistics are bit-equal.
 * ``--k2-case``: two launches of the fused CBAM kernel on one input at
   batch 64, 64x64x32 with residual (R = 5 CTAs per image), the case in
   which two launches once differed (ROADMAP.md section 3, fault 2), and
@@ -52,9 +68,14 @@ Each mode prints one JSON line per measurement and a last line with all.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
+import os
+import sys
+from pathlib import Path
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -400,6 +421,212 @@ def flagship_experiment() -> dict:
     return results
 
 
+R5_ARTIFACT = (Path(__file__).resolve().parents[2] / 'artifacts'
+               / 'esa_syn_r5.npz')
+
+
+class TrainCase(NamedTuple):
+    """One training program at its command's width: ``make_state()`` a
+    fresh state from one start, ``inputs`` one tree of draws and data per
+    step, ``loss_fn(model, inputs[j])`` the step's batch, forward and loss
+    (``train/state.make_train_steps``)."""
+    name: str
+    make_state: Callable
+    inputs: list
+    loss_fn: Callable
+
+
+def r5_masters(dev) -> nn.Module:
+    """The r5 weights as a training model holds them: f32 parameters of
+    the bf16 hrnet_esa, channels_last."""
+    from esa_pose_estimation_tpu_torch.models.hrnet import HRNet
+    from esa_pose_estimation_tpu_torch.utils import config as cfg_mod
+    from esa_pose_estimation_tpu_torch.utils.artifact import (
+        from_jax_variables,
+        read_artifact,
+    )
+    variables, _ = read_artifact(str(R5_ARTIFACT))
+    model = HRNet(cfg_mod.hrnet_esa(), dtype=torch.bfloat16)
+    model.load_state_dict(from_jax_variables(variables), strict=True)
+    return model.to(dev, memory_format=torch.channels_last)
+
+
+def training_cases(dev, n_steps: int, hrnet_batches=(32,),
+                   detector: bool = True, linemod=('heatmap', 'pvnet'),
+                   seed: int = SEED) -> list[TrainCase]:
+    """The port's training programs on the card, with their draws made
+    from ``seed``: ``hrnet_esa`` from r5 at each of ``hrnet_batches``
+    (synthetic batches, 12c's rate), the ``TinyDetector`` at the JAX
+    round-5 recipe (width 32, stride 16, downscale 8, batch 16 of
+    1920x1200 frames, perturbed), ResNet-8s in each ``linemod`` mode at
+    the command's width (batch 16, 128 px, 9 keypoints, rendered)."""
+    from esa_pose_estimation_tpu_torch.cli import train_detector as tdet
+    from esa_pose_estimation_tpu_torch.cli import train_linemod as tlm
+    from esa_pose_estimation_tpu_torch.data import linemod as lm_data
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.models.detector import TinyDetector
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+    from esa_pose_estimation_tpu_torch.utils import config as cfg_mod
+    from esa_pose_estimation_tpu_torch.utils.seeding import generator
+
+    def gen(*tag):
+        return generator(dev, seed, *tag)
+    cases = []
+    pts = synthetic.spacecraft_points(device=dev)
+    cfg = cfg_mod.TrainConfig(lr_boundaries=(0, 100, 170))
+    for b in hrnet_batches:
+        g = gen(1, b)
+        cases.append(TrainCase(
+            f'hrnet_esa_b{b}',
+            lambda: tstate.create_train_state(r5_masters(dev), cfg, 1000),
+            [synthetic.draw_batch(g, b, device=dev) for _ in range(n_steps)],
+            lambda m, d, b=b: tstate.heatmap_step_loss(
+                m, synthetic.make_batch(None, b, pts, draws=d))))
+    if detector:
+        def det_state():
+            model = TinyDetector(width=32, stride=16).to(
+                device=dev, memory_format=torch.channels_last)
+            model.init_weights(gen(2))
+            return tdet.create_detector_state(model, 1e-3, 800)
+        inputs = []
+        for i in range(n_steps):
+            frames, boxes = tdet.make_frame_batch(gen(3, i), 16, pts, 1200,
+                                                  1920)
+            inputs.append(tdet.step_inputs(frames, boxes, gen(4, i)))
+        cases.append(TrainCase(
+            'detector', det_state, inputs,
+            lambda m, x: tdet.step_loss(m, x, 16, 8)))
+    if linemod:
+        verts, faces = tlm.make_icosphere()
+        db = lm_data.LineModModelDB()
+        db.register('cat', vertices=verts)
+        kp3d = torch.as_tensor(db.get_farthest_3d('cat', 9),
+                               dtype=torch.float32, device=dev)
+        vt, ft = torch.as_tensor(verts, device=dev), torch.as_tensor(
+            faces, device=dev)
+        draws = [tlm.draw_synthetic_poses(gen(5, j), 16, dev)
+                 for j in range(n_steps)]
+    for mode in linemod:
+        def lm_state(mode=mode):
+            model = tlm.build_model(mode, 9).to(
+                device=dev, memory_format=torch.channels_last)
+            model.init_weights(gen(6))
+            return tlm.create_state(model, 1e-3, 100)
+        cases.append(TrainCase(
+            f'resnet8s_{mode}', lm_state, draws,
+            lambda m, d, mode=mode: tlm.synthetic_step_loss(
+                m, d, mode, vt, ft, kp3d, 128)))
+    return cases
+
+
+def trained_equal(a, b) -> bool:
+    """Whether two trained states hold bit-equal parameters and
+    statistics."""
+    return all(torch.equal(x, y) for x, y in zip(
+        list(a.model.parameters()) + list(a.model.buffers()),
+        list(b.model.parameters()) + list(b.model.buffers())))
+
+
+@contextlib.contextmanager
+def _interpolate_backward():
+    """The half-pixel resize with ``F.interpolate``'s own backward, as
+    the port had it before its deterministic backward."""
+    from esa_pose_estimation_tpu_torch.models import layers
+    real = layers._HalfPixelResize
+
+    class Plain:
+        @staticmethod
+        def apply(x, oh, ow):
+            return F.interpolate(x, size=(oh, ow), mode='bilinear',
+                                 align_corners=False)
+    layers._HalfPixelResize = Plain
+    try:
+        yield
+    finally:
+        layers._HalfPixelResize = real
+
+
+@contextlib.contextmanager
+def _free_cudnn():
+    """Training steps with cuDNN's free choice of algorithms, as the port
+    trained before ``train/state.deterministic_cudnn``."""
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+    real = tstate.deterministic_cudnn
+    tstate.deterministic_cudnn = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        tstate.deterministic_cudnn = real
+
+
+@contextlib.contextmanager
+def _stderr_lines():
+    """The lines written to this process's standard error meanwhile, C++
+    warnings of the backward's threads included."""
+    import tempfile
+    lines: list[str] = []
+    sys.stderr.flush()
+    saved = os.dup(2)
+    with tempfile.TemporaryFile(mode='w+') as tmp:
+        os.dup2(tmp.fileno(), 2)
+        try:
+            yield lines
+        finally:
+            sys.stderr.flush()
+            os.dup2(saved, 2)
+            os.close(saved)
+            tmp.seek(0)
+            lines += tmp.read().splitlines()
+
+
+def determinism_experiment(n_steps: int = 4) -> dict:
+    """The ``--determinism`` mode (module docstring)."""
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+    os.environ['CUBLAS_WORKSPACE_CONFIG'] = ':4096:8'
+    dev = _require_cuda()
+    cases = training_cases(dev, n_steps)
+    results: dict = {}
+    backwards = (('interpolate', _interpolate_backward),
+                 ('port', contextlib.nullcontext))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.set_warn_always(True)
+    try:
+        for bname, ctx in backwards:
+            for case in cases:
+                with ctx(), _stderr_lines() as lines:
+                    tstate.run_steps(case.make_state(), case.loss_fn,
+                                     case.inputs[:1])
+                    torch.cuda.synchronize()
+                ops = sorted({ln.split(' does not have')[0].split()[-1]
+                              for ln in lines
+                              if 'does not have a deterministic' in ln})
+                results[f'ops_{case.name}_{bname}'] = ops
+                print(json.dumps({f'ops_{case.name}_{bname}': ops}),
+                      flush=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.set_warn_always(False)
+    for cudnn_det in (False, True):
+        for bname, ctx in backwards:
+            for case in cases:
+                with ctx(), (contextlib.nullcontext() if cudnn_det
+                             else _free_cudnn()):
+                    a, b = case.make_state(), case.make_state()
+                    la = tstate.run_steps(a, case.loss_fn, case.inputs)
+                    lb = tstate.run_steps(b, case.loss_fn, case.inputs)
+                    torch.cuda.synchronize()
+                row = {'losses_equal': torch.equal(la, lb),
+                       'state_equal': trained_equal(a, b),
+                       'first_loss_equal': bool(la[0] == lb[0]),
+                       'steps': n_steps}
+                key = f'pair_{case.name}_{bname}_cudnn_det_{cudnn_det}'
+                results[key] = row
+                print(json.dumps({key: row}), flush=True)
+                del a, b
+                torch.cuda.empty_cache()
+    return results
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     mode = ap.add_mutually_exclusive_group()
@@ -409,6 +636,7 @@ def main(argv=None) -> dict:
     mode.add_argument('--cluster-sweep', action='store_true')
     mode.add_argument('--repeat', action='store_true')
     mode.add_argument('--k2-case', action='store_true')
+    mode.add_argument('--determinism', action='store_true')
     args = ap.parse_args(argv)
     _require_cuda()
     if args.chain:
@@ -423,6 +651,8 @@ def main(argv=None) -> dict:
         results = repeat_experiment()
     elif args.k2_case:
         results = k2_case()
+    elif args.determinism:
+        results = determinism_experiment()
     else:
         results = flagship_experiment()
     results['device'] = torch.cuda.get_device_name(0)

@@ -22,7 +22,10 @@ page-locked host tensors, the production input route; ``--host-crop``
 crops on the loader's threads and ships 128x128 crops in place of
 1920x1200 frames.  ``--train-pkl``/``--image-root`` read the SPEED pickle
 layout (data_load4.py:90-101) through ``data/speed.BatchLoader``.  Both
-keep two batches' copies to the card in flight.  Without either, the
+keep two batches' copies to the card in flight, and train a step per
+batch through ``train/state.make_train_steps`` (the batch build and the
+step, ``data/pipeline.step_loss``: on the card one CUDA graph replay per
+step; eager per step under several processes).  Without either, the
 synthetic dataset (``data/synthetic.make_batch``) is generated on the
 device, ``--log-every`` steps at a time by ``train/state.make_scan_step``
 (on the card one CUDA graph replay per chunk; per step under several
@@ -210,9 +213,13 @@ def train(args) -> dict:
     tcp.create_socket(classname=CLASS_NAME)
 
     # the synthetic route runs make_scan_step, one per chunk length (the
-    # JAX scan_cache); with several processes it stays per step, since
-    # the graph is not captured under DistributedDataParallel
-    scan = not (use_shard or use_real) and n_proc == 1
+    # JAX scan_cache); the shard and pickle routes a step program of one
+    # step (the JAX make_sharded_train_step with build_batch), on the card
+    # one CUDA graph replay per step.  With several processes both stay
+    # eager per step: no graph is captured under DistributedDataParallel
+    # (ROADMAP item 2d)
+    one = n_proc == 1
+    scan = not (use_shard or use_real) and one
     scans: dict[int, object] = {}
     if scan:
         batch_fn = state_mod.BatchFn(
@@ -226,6 +233,19 @@ def train(args) -> dict:
     elif not (use_shard or use_real):
         print('synthetic route per step: the scan is not captured under '
               f'DistributedDataParallel ({n_proc} processes)')
+    else:
+        def step_loss(model, x):
+            return data_pipeline.step_loss(
+                model, x, cfg.crop_size, norm_mean, args.augment_geom,
+                args.augment_photo, cfg.loss_weight_w)
+        if one:
+            step = state_mod.make_train_steps(st, step_loss)
+        else:
+            print('data route per step and eager: no graph is captured '
+                  f'under DistributedDataParallel ({n_proc} processes)')
+
+            def step(inputs):
+                return state_mod.run_steps(st, step_loss, inputs)
 
     # the running minima of the best gates survive a resume (sidecar)
     best: dict[str, float] = ckpt.load_best()
@@ -238,26 +258,18 @@ def train(args) -> dict:
             # each process draws its own augmentations (one process: the
             # stream of a single-card run)
             gen = generator(dev, 1234, epoch, *([rank] if n_proc > 1 else []))
-            if use_shard:
-                batches = (
-                    data_pipeline.build_shard_batch(
-                        b, gen, crop_size=cfg.crop_size, train=True,
-                        norm_mean=norm_mean, augment_geom=args.augment_geom,
-                        augment_photo=args.augment_photo)
-                    for b in data_pipeline.prefetch_to_device(
-                        iter(shard_loader), dev, size=2))
-            elif use_real:
-                loader = speed_data.BatchLoader(train_records, proc_batch,
-                                                shuffle=args.shuffle,
-                                                seed=epoch)
-                batches = (
-                    data_pipeline.build_batch(
-                        b['frame'], b['bbox'], b['keypoints_2d'], gen,
-                        crop_size=cfg.crop_size, train=True,
-                        norm_mean=norm_mean, augment_geom=args.augment_geom,
-                        augment_photo=args.augment_photo)
-                    for b in data_pipeline.prefetch_to_device(iter(loader),
-                                                              dev, size=2))
+            if use_shard or use_real:
+                if use_shard:
+                    src = iter(shard_loader)
+                else:
+                    src = iter(speed_data.BatchLoader(
+                        train_records, proc_batch, shuffle=args.shuffle,
+                        seed=epoch))
+                batches = (data_pipeline.step_inputs(
+                    b, gen, cfg.crop_size, args.augment_geom,
+                    args.augment_photo)
+                    for b in data_pipeline.prefetch_to_device(src, dev,
+                                                              size=2))
             elif not scan:
                 batches = (
                     synthetic.make_batch(gen, proc_batch, points_3d,
@@ -289,11 +301,14 @@ def train(args) -> dict:
                               f'loss : {losses.avg:.6f}')
             else:
                 for i, batch in enumerate(batches):
-                    metrics = state_mod.train_step(st, batch,
-                                                   cfg.loss_weight_w)
-                    loss_hist.append(metrics['loss'][None])
+                    if use_shard or use_real:
+                        loss = step([batch])
+                    else:
+                        loss = state_mod.train_step(
+                            st, batch, cfg.loss_weight_w)['loss'][None]
+                    loss_hist.append(loss)
                     if i % args.log_every == args.log_every - 1:
-                        losses.update(float(metrics['loss']))
+                        losses.update(float(loss[0]))
                         print(f'{CLASS_NAME} [{epoch + 1}, {i + 1}] '
                               f'loss : {losses.avg:.6f}')
             losses.avg = (float(torch.cat(loss_hist).mean()) if loss_hist

@@ -24,8 +24,11 @@ and metric-gated ``best_iou`` checkpoints under ``net_detector/``
 (``train/checkpoint.py``), ``log_detector.txt`` and ``events.jsonl``.  A
 run resumes from ``last``.
 
-Runs on the card (``--device cuda``, the default; without one it raises)
-or on the CPU with ``--device cpu``.  The random streams are torch's,
+Each step (the frames perturbed, pooled, the targets, forward, backward,
+Adam) runs through ``train/state.make_train_steps``: on the card one CUDA
+graph replay per step.  Runs on the card (``--device cuda``, the default;
+without one it raises) or on the CPU with ``--device cpu``.  The random
+streams are torch's,
 seeded from ``--seed``: the frames are not the JAX run's.
 """
 
@@ -103,21 +106,44 @@ def grid_hw(height: int, width: int, stride: int) -> tuple[int, int]:
     return -(-height // stride), -(-width // stride)
 
 
+def step_inputs(frames: torch.Tensor, bboxes: torch.Tensor,
+                perturb: torch.Generator | None = None) -> dict:
+    """One step's inputs: the frames and boxes, and with a ``perturb``
+    generator the draws of :func:`perturb_frames`, drawn here, before the
+    step."""
+    inputs = {'frames': frames, 'bboxes': bboxes}
+    if perturb is not None:
+        inputs['perturb'] = augment.draw_perturb(perturb, *frames.shape,
+                                                 device=frames.device)
+    return inputs
+
+
+def step_loss(model: torch.nn.Module, inputs: dict, stride: int,
+              downscale: int) -> torch.Tensor:
+    """The step as ``train/state.make_train_steps`` holds it (the JAX
+    package jits it with :func:`perturb_frames`): the frames through their
+    perturbation draws (``inputs['perturb']``, when there are any), pooled
+    by ``downscale``, the boxes scaled to match, the targets on the
+    detector's grid, a train-mode forward (batch statistics) and
+    :func:`models.detector.detection_loss`."""
+    frames = inputs['frames']
+    if 'perturb' in inputs:
+        frames = perturb_frames(None, frames, inputs['perturb'])
+    ds = downsample_frames(frames, downscale)
+    targets = det_mod.detection_targets(
+        inputs['bboxes'] / float(downscale),
+        grid_hw(ds.shape[1], ds.shape[2], stride), stride)
+    return det_mod.detection_loss(model(ds[..., None]), targets)
+
+
 def train_step(state: state_mod.TrainState, frames: torch.Tensor,
                bboxes: torch.Tensor, stride: int, downscale: int
                ) -> dict[str, torch.Tensor]:
-    """One step on full frames (B, H, W) and their boxes (B, 4): pool the
-    frames by ``downscale``, scale the boxes to match, render the targets
-    on the detector's grid, then a train-mode forward (batch statistics),
-    :func:`models.detector.detection_loss`, its backward and Adam.
-    Returns the loss and the gradients' global norm as device tensors: no
-    host sync."""
-    ds = downsample_frames(frames, downscale)
-    targets = det_mod.detection_targets(
-        bboxes / float(downscale), grid_hw(ds.shape[1], ds.shape[2], stride),
-        stride)
-    return state_mod.optimize(state, lambda model: det_mod.detection_loss(
-        model(ds[..., None]), targets))
+    """One eager step on full frames (B, H, W) and their boxes (B, 4):
+    :func:`step_loss`, its backward and Adam.  Returns the loss and the
+    gradients' global norm as device tensors: no host sync."""
+    return state_mod.optimize(state, lambda model: step_loss(
+        model, {'frames': frames, 'bboxes': bboxes}, stride, downscale))
 
 
 def held_out_batches(points_3d: torch.Tensor, seed: int, n_batches: int,
@@ -186,6 +212,11 @@ def train(args) -> dict:
                               perturb=key == 'perturbed')
         for key in ('clean', 'perturbed')}
     result: dict = {}
+    # the JAX package's jitted step: on the card one CUDA graph replay per
+    # step, with the frames, boxes and perturbation draws copied in and the
+    # cosine rate written into a device tensor
+    step = state_mod.make_train_steps(state, lambda model, x: step_loss(
+        model, x, args.stride, args.downscale))
     try:
         for epoch in range(begin_epoch, args.epochs):
             t0 = time.perf_counter()
@@ -194,12 +225,10 @@ def train(args) -> dict:
                 frames, bboxes = make_frame_batch(
                     generator(dev, args.seed, 1, epoch, i), args.batch_size,
                     points_3d, args.height, args.width)
-                if args.augment:
-                    frames = perturb_frames(
-                        generator(dev, args.seed, 2, epoch, i), frames)
-                losses.append(train_step(state, frames, bboxes, args.stride,
-                                         args.downscale)['loss'])
-            loss_avg = float(torch.stack(losses).mean())   # waits for the card
+                losses.append(step([step_inputs(
+                    frames, bboxes, generator(dev, args.seed, 2, epoch, i)
+                    if args.augment else None)]))
+            loss_avg = float(torch.cat(losses).mean())     # waits for the card
             train_s = time.perf_counter() - t0
             result = evaluate_detector(model, held_out['clean'], args.stride,
                                        args.downscale)

@@ -31,8 +31,11 @@ evaluation.py:526-532).  Two data sources:
 
 Adam with a cosine decay to lr/100 over the run; ``last`` and metric-gated
 ``best_add`` checkpoints under ``net_<cls>/`` (a run resumes from
-``last``), ``log_<cls>.txt`` and ``events.jsonl``.  The per-step losses
-stay on the device and are read once per epoch.  Runs on the card
+``last``), ``log_<cls>.txt`` and ``events.jsonl``.  The rendered source
+trains an epoch as one program of ``--steps-per-epoch`` steps, the real
+source a step per batch (``train/state.make_train_steps``: on the card a
+CUDA graph replay).  The per-step losses stay on the device and are read
+once per epoch.  Runs on the card
 (``--device cuda``, the default; without one it raises) or on the CPU with
 ``--device cpu``.  The random streams are torch's, seeded from ``--seed``:
 the batches are not the JAX run's.
@@ -43,6 +46,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -77,8 +81,12 @@ BEST = 'best_add'
 METRICS = ('projection_2d', 'add', 'cm_degree_5')
 
 
+@lru_cache(maxsize=8)
 def synthetic_k(size: int, device=None) -> torch.Tensor:
-    """LINEMOD_K scaled from 640 px to a ``size`` crop, K[2, 2] = 1."""
+    """LINEMOD_K scaled from 640 px to a ``size`` crop, K[2, 2] = 1, made
+    once per (size, device), as ``core/camera.speed_k``: a captured step
+    that renders with it copies nothing from the host.  Shared: do not
+    write to it."""
     K = camera.linemod_k(device=device) * (size / 640.0)
     K[2, 2] = 1.0
     return K
@@ -214,6 +222,18 @@ def synthetic_inputs(batch: dict[str, torch.Tensor]) -> torch.Tensor:
     return batch['image'][..., None].expand(-1, -1, -1, 3)
 
 
+def synthetic_step_loss(model: torch.nn.Module, draws: dict, mode: str,
+                        model_pts: torch.Tensor, faces: torch.Tensor,
+                        kp3d: torch.Tensor, size: int) -> torch.Tensor:
+    """The rendered step as ``train/state.make_train_steps`` holds it (the
+    JAX ``scan_epoch``'s body): the batch rendered from its pose draws,
+    the forward and :func:`linemod_loss`."""
+    batch = synthetic_linemod_batch(None, draws['tz'].shape[0], model_pts,
+                                    faces, kp3d, size, draws=draws)
+    return linemod_loss(model, synthetic_inputs(batch), mode,
+                        batch['keypoints_2d'], batch['mask'])
+
+
 def draw_real_augment(generator: torch.Generator | None, batch: int,
                       size: int, device=None) -> dict:
     """The draws of the real-data augmentation chain, in its order."""
@@ -262,6 +282,31 @@ def real_batch(frames: torch.Tensor, bboxes: torch.Tensor,
         crops, mcrop, kp = aug.random_flip(crops, mcrop, kp, draws['flip'])
         crops = aug.random_add_noise(crops, draws['noise'])
     return crop_ops.normalize_rgb(crops), mcrop, kp
+
+
+def real_step_inputs(batch: dict, size: int, augment: bool,
+                     generator: torch.Generator | None, device) -> dict:
+    """One real step's inputs: a loader batch's frames, boxes, keypoints
+    and masks on the device and, with ``augment``, the draws of
+    :func:`draw_real_augment`, drawn here, before the step."""
+    inputs = {k: torch.as_tensor(batch[k], device=device)
+              for k in ('frame', 'bbox', 'keypoints_2d', 'mask')}
+    if augment:
+        inputs['augment'] = draw_real_augment(
+            generator, inputs['frame'].shape[0], size, device)
+    return inputs
+
+
+def real_step_loss(model: torch.nn.Module, inputs: dict, mode: str,
+                   size: int) -> torch.Tensor:
+    """The real step as ``train/state.make_train_steps`` holds it (the JAX
+    ``make_real_step``): :func:`real_batch` on :func:`real_step_inputs`,
+    the forward and :func:`linemod_loss`."""
+    img, mcrop, kp = real_batch(inputs['frame'], inputs['bbox'],
+                                inputs['keypoints_2d'], inputs['mask'], size,
+                                'augment' in inputs,
+                                draws=inputs.get('augment'))
+    return linemod_loss(model, img, mode, kp, mcrop)
 
 
 @torch.no_grad()
@@ -394,36 +439,35 @@ def train(args) -> dict:
             ckpt.store_best(best)
             ckpt.save(BEST, state, epoch)
 
+    # the JAX package's compiled steps: the real step per batch
+    # (make_real_step), the rendered epoch as one program of
+    # --steps-per-epoch steps (scan_epoch), render inside; on the card one
+    # CUDA graph replay per step or per epoch
+    if use_real:
+        step = state_mod.make_train_steps(
+            state, lambda m, x: real_step_loss(m, x, args.mode, size))
+    else:
+        scan_epoch = state_mod.make_train_steps(
+            state, lambda m, d: synthetic_step_loss(
+                m, d, args.mode, model_pts, faces_t, kp3d, size),
+            args.steps_per_epoch)
     try:
         for epoch in range(begin_epoch, args.epochs):
             t0 = time.perf_counter()
-            losses = []
             if use_real:
                 loader = linemod_data.LinemodBatchLoader(
                     train_records, args.image_root, args.cls,
                     args.batch_size, shuffle=True, seed=args.seed + epoch,
                     frame_hw=(args.frame_h, args.frame_w))
-                for bi, batch in enumerate(loader):
-                    img, mcrop, kp = real_batch(
-                        torch.as_tensor(batch['frame'], device=dev),
-                        torch.as_tensor(batch['bbox'], device=dev),
-                        torch.as_tensor(batch['keypoints_2d'], device=dev),
-                        torch.as_tensor(batch['mask'], device=dev), size,
-                        args.augment, generator(dev, args.seed, 1, epoch, bi))
-                    losses.append(state_mod.optimize(
-                        state, lambda m: linemod_loss(
-                            m, img, args.mode, kp, mcrop))['loss'])
+                losses = torch.cat([step([real_step_inputs(
+                    batch, size, args.augment,
+                    generator(dev, args.seed, 1, epoch, bi), dev)])
+                    for bi, batch in enumerate(loader)])
             else:
-                for j in range(args.steps_per_epoch):
-                    batch = synthetic_linemod_batch(
-                        generator(dev, args.seed, 1, epoch, j),
-                        args.batch_size, model_pts, faces_t, kp3d, size)
-                    img = synthetic_inputs(batch)
-                    losses.append(state_mod.optimize(
-                        state, lambda m: linemod_loss(
-                            m, img, args.mode, batch['keypoints_2d'],
-                            batch['mask']))['loss'])
-            loss_avg = float(torch.stack(losses).mean())   # waits for the card
+                losses = scan_epoch([draw_synthetic_poses(
+                    generator(dev, args.seed, 1, epoch, j), args.batch_size,
+                    dev) for j in range(args.steps_per_epoch)])
+            loss_avg = float(losses.mean())                # waits for the card
             train_s = time.perf_counter() - t0
             logger.append([epoch + 1, args.lr, loss_avg])
             print(f'{args.cls} epoch {epoch + 1}: loss {loss_avg:.5f}')

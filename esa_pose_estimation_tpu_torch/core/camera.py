@@ -156,8 +156,14 @@ def project_points(points_3d: torch.Tensor, R: torch.Tensor, t: torch.Tensor,
     broadcastable.  Returns (..., N, 2).
     """
     p_cam = torch.einsum('...ij,...nj->...ni', R, points_3d) + t[..., None, :]
-    z = p_cam[..., 2:3]
-    xy = p_cam[..., :2] / z
+    return project_camera_points(p_cam, K)
+
+
+def project_camera_points(p_cam: torch.Tensor, K: torch.Tensor
+                          ) -> torch.Tensor:
+    """The pinhole projection of camera-frame points: (..., N, 3) ->
+    (..., N, 2) pixel coordinates; K: (3, 3) or broadcastable."""
+    xy = p_cam[..., :2] / p_cam[..., 2:3]
     fx, fy = K[..., 0, 0], K[..., 1, 1]
     cx, cy = K[..., 0, 2], K[..., 1, 2]
     u = fx[..., None] * xy[..., 0] + cx[..., None]

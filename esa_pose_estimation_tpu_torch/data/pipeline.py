@@ -8,7 +8,9 @@ whole batch.  Random draws come from ``draw_build`` (or are injected as
 ``draws``), as in ``data/augment.py``.  :func:`prefetch_to_device` keeps
 host batches' copies to the card in flight ahead of the consumer;
 :func:`build_shard_batch` turns a native-loader batch
-(``data/native_loader.py``), frames or host crops, into a training batch.
+(``data/native_loader.py``), frames or host crops, into a training batch;
+:func:`step_inputs` and :func:`step_loss` are the two halves of that build
+and its train step as one captured program.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from esa_pose_estimation_tpu_torch.data import augment
 from esa_pose_estimation_tpu_torch.data.speed import to_device
 from esa_pose_estimation_tpu_torch.ops import crop as crop_ops
 from esa_pose_estimation_tpu_torch.ops import heatmap as heatmap_ops
+from esa_pose_estimation_tpu_torch.train.loss import weighted_heatmap_loss
 
 
 def draw_crop_geom(generator: torch.Generator, batch: int,
@@ -167,6 +170,44 @@ def build_shard_batch(b: dict[str, Any],
                                       b['keypoints_2d'], generator, **kw)
     return build_batch(b['frame'], b['bbox'], b['keypoints_2d'], generator,
                        crop_size=crop_size, **kw)
+
+
+# the tensors of a loader's batch that build_shard_batch reads: host crops
+# or frames, and the labels
+STEP_KEYS = ('crop', 'rate', 'origin', 'frame', 'bbox', 'keypoints_2d')
+
+
+def step_inputs(b: dict[str, Any], generator: torch.Generator,
+                crop_size: int = 128, augment_geom: bool = False,
+                augment_photo: bool = False) -> dict:
+    """One train step's inputs from a loader batch already on the device:
+    the tensors :func:`build_shard_batch` reads (``STEP_KEYS``), and its
+    draws (:func:`draw_build`), drawn here, before the step, as the per-step
+    build drew them.  :func:`step_loss` makes the batch from them, so a
+    captured step draws nothing."""
+    batch = {k: b[k] for k in STEP_KEYS if k in b}
+    n = batch['keypoints_2d'].shape[0]
+    return {'batch': batch,
+            'draws': draw_build(generator, n, crop_size, True, augment_geom,
+                                augment_photo,
+                                device=batch['keypoints_2d'].device)}
+
+
+def step_loss(model, inputs: dict, crop_size: int = 128,
+              norm_mean: float = 0.449, augment_geom: bool = False,
+              augment_photo: bool = False, loss_w: float = 10.0
+              ) -> torch.Tensor:
+    """The shard and pickle routes' step as ``train/state.make_train_steps``
+    holds it (the JAX package jits ``build_batch`` with its train step):
+    :func:`build_shard_batch` on :func:`step_inputs`, the train-mode
+    forward and the weighted heatmap loss."""
+    batch = build_shard_batch(inputs['batch'], crop_size=crop_size,
+                              train=True, norm_mean=norm_mean,
+                              augment_geom=augment_geom,
+                              augment_photo=augment_photo,
+                              draws=inputs['draws'])
+    return weighted_heatmap_loss(model(batch['image']), batch['heatmaps'],
+                                 batch['weights'], W=loss_w)
 
 
 def prefetch_to_device(batches: Iterable[dict[str, Any]], device,

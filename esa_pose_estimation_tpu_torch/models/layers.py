@@ -22,6 +22,7 @@ them after the reference).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -53,13 +54,50 @@ def _align_corners_matrix(in_size: int, out_size: int,
     return _interp_matrix(pos, in_size)
 
 
+@functools.lru_cache(maxsize=None)
+def _half_pixel_matrix(in_size: int, out_size: int,
+                       device: torch.device) -> torch.Tensor:
+    """(out, in) f32 tent weights of ``F.interpolate``'s half-pixel
+    sampling, (o + 0.5) * in/out - 0.5 clamped to [0, in - 1]: its two
+    taps per output, with the clamped border's weight on the edge.  Made
+    once per shape and device (a network has a handful): a backward then
+    launches its two products and no set-up."""
+    pos = (torch.arange(out_size, dtype=torch.float32, device=device)
+           + 0.5) * (in_size / out_size) - 0.5
+    return _interp_matrix(torch.clamp(pos, 0.0, in_size - 1.0), in_size)
+
+
+class _HalfPixelResize(torch.autograd.Function):
+    """``F.interpolate(mode='bilinear', align_corners=False)`` forward, and
+    as backward the transposed tent products, which add in a fixed order:
+    the CUDA backward of ``F.interpolate`` adds with atomics, so two runs
+    of one training step differ in the last bits."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
+        ctx.in_hw = tuple(x.shape[-2:])
+        return F.interpolate(x, size=(oh, ow), mode='bilinear',
+                             align_corners=False)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (h, w), (oh, ow) = ctx.in_hw, grad.shape[-2:]
+        wy = _half_pixel_matrix(h, oh, grad.device)
+        wx = _half_pixel_matrix(w, ow, grad.device)
+        nhwc = grad.permute(0, 2, 3, 1).to(torch.float32)
+        rows = torch.einsum('oh,nowc->nhwc', wy, nhwc)
+        out = torch.einsum('pw,nhpc->nhwc', wx, rows)
+        return out.to(grad.dtype).permute(0, 3, 1, 2), None, None
+
+
 def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
                     align_corners: bool = False) -> torch.Tensor:
     """Bilinear resize of NCHW maps.
 
     ``align_corners=False`` is ``jax.image.resize`` (half-pixel centers).
     The network only upsamples here (by 2, 4 or 8), where its renormalized
-    border taps equal ``F.interpolate``'s clamped ones.
+    border taps equal ``F.interpolate``'s clamped ones.  Its backward is
+    :class:`_HalfPixelResize`'s, deterministic on the card.
     ``align_corners=True`` (``nn.UpsamplingBilinear2d``) runs as two
     tent-weight products with the weights cast to the activation dtype, as
     the reference does, so bf16 rounds the weights the same way.
@@ -69,8 +107,7 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
     if (h, w) == (oh, ow):
         return x
     if not align_corners:
-        return F.interpolate(x, size=(oh, ow), mode='bilinear',
-                             align_corners=False)
+        return _HalfPixelResize.apply(x, oh, ow)
     dt = x.dtype if x.is_floating_point() else torch.float32
     wy = _align_corners_matrix(h, oh, x.device).to(dt)
     wx = _align_corners_matrix(w, ow, x.device).to(dt)

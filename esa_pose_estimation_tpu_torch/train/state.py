@@ -8,16 +8,19 @@ weighted HeatmapWing loss (loss.py:116-129); the detector's cosine decay
 (:func:`cosine_schedule`).  Several processes train one model through
 ``TrainState.train_model``, the ``DistributedDataParallel`` wrapper of
 ``parallel/mesh.wrap_data_parallel``, whose backward averages the
-gradients over the processes.  :func:`make_scan_step` is the JAX
-``make_sharded_scan_step``: ``n_inner`` steps of batch making, forward,
-backward and Adam as one CUDA graph on the card, one replay per call.  The
-JAX mesh's sharded steps have no counterpart: one process holds one card.
+gradients over the processes.  :func:`make_train_steps` is the JAX
+package's jitted steps: ``n_inner`` steps of batch making, forward,
+backward and Adam as one CUDA graph on the card, one replay per call;
+:func:`make_scan_step` is ``make_sharded_scan_step`` on it.  The JAX
+mesh's sharded steps have no other counterpart: one process holds one
+card.
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import contextlib
 import math
 
 import torch
@@ -100,6 +103,25 @@ class TrainState:
         self.step = step
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """``torch.backends.cudnn.deterministic`` on while a training step
+    runs, warms up or is captured, and the process's own setting back
+    after it: cuDNN's heuristics pick weight-gradient algorithms that add
+    with atomics for some convolutions (the detector's, ResNet-8s'), and
+    two runs of one step then differ (``cli/mfu_experiments
+    --determinism``).  With it and the half-pixel resize's own backward
+    (``models/layers._HalfPixelResize``) training on the card repeats bit
+    for bit; serving keeps cuDNN's free choice.  A captured graph keeps
+    the algorithms chosen in its capture."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
 def create_train_state(model: nn.Module, cfg: TrainConfig,
                        steps_per_epoch: int = 1000) -> TrainState:
     """Adam (optax's defaults) over ``model``'s parameters, which must
@@ -124,9 +146,8 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor],
     loss and the gradients' global norm as device tensors: no host sync.
     Under several processes the loss is this process's and the norm is
     that of the gradients averaged over the processes."""
-    return optimize(state, lambda model: weighted_heatmap_loss(
-        model(batch['image']), batch['heatmaps'], batch['weights'],
-        W=loss_w))
+    return optimize(state, lambda model: heatmap_step_loss(model, batch,
+                                                            loss_w))
 
 
 def optimize(state: TrainState,
@@ -136,12 +157,14 @@ def optimize(state: TrainState,
     forward and its scalar loss: the backward (``DistributedDataParallel``
     averages the gradients over the processes inside it), the gradients'
     global norm, the update at the schedule's rate for this step.  Returns
-    the loss and the norm as device tensors."""
+    the loss and the norm as device tensors.  It runs under
+    :func:`deterministic_cudnn`."""
     model, opt = state.train_model, state.optimizer
     model.train()
-    loss = loss_fn(model)
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
+    with deterministic_cudnn():
+        loss = loss_fn(model)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
     grad_norm = global_norm([p.grad for p in model.parameters()
                              if p.grad is not None])
     lr = state.schedule(state.step)
@@ -161,18 +184,23 @@ class BatchFn(NamedTuple):
     make: Callable[[object], dict[str, torch.Tensor]]
 
 
-def _scan_update(state: TrainState, batch: dict[str, torch.Tensor],
-                 loss_w: float) -> torch.Tensor:
-    """One step as a graph holds it: the gradients stay allocated (zeroed,
-    not dropped) and Adam reads its rate from the tensor in its groups;
-    no gradient norm.  Returns the loss."""
-    model, opt = state.train_model, state.optimizer
-    loss = weighted_heatmap_loss(model(batch['image']), batch['heatmaps'],
+def heatmap_step_loss(model: nn.Module, batch: dict[str, torch.Tensor],
+                      loss_w: float = 10.0) -> torch.Tensor:
+    """The keypoint step's forward and loss on a model-ready batch."""
+    return weighted_heatmap_loss(model(batch['image']), batch['heatmaps'],
                                  batch['weights'], W=loss_w)
-    opt.zero_grad(set_to_none=False)
-    loss.backward()
-    opt.step()
-    return loss.detach()
+
+
+StepLoss = Callable[[nn.Module, object], torch.Tensor]
+
+
+def run_steps(state: TrainState, loss_fn: StepLoss, inputs: list
+              ) -> torch.Tensor:
+    """The steps of :func:`make_train_steps` run eagerly, one
+    :func:`optimize` each: its CPU path, and the path of several
+    processes.  Returns the losses (len(inputs),)."""
+    return torch.stack([optimize(state, lambda m, x=x: loss_fn(m, x))['loss']
+                        for x in inputs])
 
 
 def _capturable(opt: torch.optim.Optimizer, device) -> torch.Tensor:
@@ -191,6 +219,13 @@ def _capturable(opt: torch.optim.Optimizer, device) -> torch.Tensor:
     return lr
 
 
+def _optimizer_tensors(opt: torch.optim.Optimizer) -> list[torch.Tensor]:
+    out = []
+    for st in opt.state.values():
+        out += [v for v in st.values() if isinstance(v, torch.Tensor)]
+    return out
+
+
 def _warm_up_restored(state: TrainState, fn: Callable[[], object],
                       device) -> None:
     """``fn()`` once on a side stream (Adam's moments, the gradients,
@@ -198,10 +233,8 @@ def _warm_up_restored(state: TrainState, fn: Callable[[], object],
     model and the optimizer put back as they were.  State that the call
     created is Adam's, which starts at zero."""
     def tensors():
-        out = list(state.model.parameters()) + list(state.model.buffers())
-        for st in state.optimizer.state.values():
-            out += [v for v in st.values() if isinstance(v, torch.Tensor)]
-        return out
+        return (list(state.model.parameters()) + list(state.model.buffers())
+                + _optimizer_tensors(state.optimizer))
     saved = {id(t): t.detach().clone() for t in tensors()}
     graphs.warm_up(fn, device)
     with torch.no_grad():
@@ -210,6 +243,136 @@ def _warm_up_restored(state: TrainState, fn: Callable[[], object],
                 t.copy_(saved[id(t)])
             else:
                 t.zero_()
+
+
+def make_train_steps(state: TrainState, loss_fn: StepLoss, n_inner: int = 1
+                     ) -> Callable[[list], torch.Tensor]:
+    """A compiled training program, the counterpart of JAX's jitted train
+    steps (``make_sharded_train_step`` at ``n_inner`` = 1, the scan of
+    ``make_sharded_scan_step``, the detector's and LINEMOD's steps).
+    Returns ``fn(inputs) -> losses (n_inner,)``, a device tensor, which
+    advances ``state`` by ``n_inner`` steps in place.
+
+    ``inputs`` holds one tree of tensors per step: the step's random draws
+    (drawn before the call) and its data (a loader's batch), and
+    ``loss_fn(model, inputs[j])`` makes the batch from them with no
+    randomness, runs the train-mode forward and returns the loss.  On the
+    card a CUDA graph holds ``n_inner`` x (``loss_fn`` -> backward ->
+    Adam), captured at the first call after one warm-up step whose effects
+    are undone, and replayed by every call with the inputs copied into its
+    static buffers; the schedule's rate of each step is written into a
+    device tensor first.  Adam runs ``capturable`` with a tensor rate
+    (:func:`_capturable`; the checkpoints store the plain form); the
+    gradients' norm is not computed.  The warm-up and the capture run
+    under :func:`deterministic_cudnn`.  Every call must give the inputs of
+    the first in shape and dtype.  The graph reads the model, its
+    gradients and the optimizer where they lie, and each replay checks
+    that they were not replaced (``utils/graphs.check_pointers``).  It is
+    not captured under ``DistributedDataParallel``.  On the CPU the same
+    steps run eagerly (:func:`run_steps`).
+    """
+    if n_inner < 1:
+        raise ValueError(f'make_train_steps: n_inner={n_inner} < 1')
+    device = next(state.model.parameters()).device
+    if device.type != 'cuda':
+        return lambda inputs: run_steps(state, loss_fn, inputs)
+    if state.train_model is not state.model:
+        raise NotImplementedError('make_train_steps: the graph is not '
+                                  'captured under DistributedDataParallel')
+    return StepGraph(state, loss_fn, n_inner, device)
+
+
+class StepGraph:
+    """:func:`make_train_steps`'s ``fn`` on the card.  ``capture`` holds
+    the graph's :class:`~utils.graphs.Captured` once there is one."""
+
+    def __init__(self, state: TrainState, loss_fn: StepLoss, n_inner: int,
+                 device: torch.device):
+        self.state, self.loss_fn = state, loss_fn
+        self.n_inner, self.device = n_inner, device
+        self.lr = _capturable(state.optimizer, device)
+        self.lrs = torch.zeros((n_inner,), dtype=torch.float32,
+                               device=device)
+        self.inputs: list = []
+        self.key: tuple = ()
+        self.capture: graphs.Captured | None = None
+
+    def _step(self, j: int) -> torch.Tensor:
+        """One step as the graph holds it: the gradients stay allocated
+        (zeroed, not dropped) and Adam reads its rate from the tensor in
+        its groups.  Returns the loss."""
+        model, opt = self.state.train_model, self.state.optimizer
+        self.lr.copy_(self.lrs[j])
+        loss = self.loss_fn(model, self.inputs[j])
+        opt.zero_grad(set_to_none=False)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    def _rates(self) -> None:
+        st = self.state
+        for j in range(self.n_inner):
+            self.lrs[j].fill_(st.schedule(st.step + j))
+        st.train_model.train()
+
+    def run_eagerly(self, inputs: list) -> torch.Tensor:
+        """The steps of a replay launched one by one, with no graph: the
+        same kernels and Adam's capturable arithmetic, which a replay is
+        held to bit for bit.  For a state that has no graph."""
+        self._rates()
+        self.inputs = inputs
+        with deterministic_cudnn():
+            losses = torch.stack([self._step(j)
+                                  for j in range(self.n_inner)])
+        self.inputs = []
+        self.state.step += self.n_inner
+        return losses
+
+    def __call__(self, inputs: list) -> torch.Tensor:
+        st, n = self.state, self.n_inner
+        if len(inputs) != n:
+            raise ValueError(f'StepGraph: {len(inputs)} inputs for {n} '
+                             f'steps')
+        key = graphs.graph_key(tuple(inputs), {})
+        self._rates()
+        if self.capture is None:
+            self.inputs, self.key = graphs.tree_map(torch.clone, inputs), key
+            # what the graph reads in place, by a closure that does not
+            # hold self: the capture must not keep its own graph alive
+            model_reads = graphs.tensor_reader([st.model], grads=True)
+            opt = st.optimizer
+            with torch.cuda.device(self.device), deterministic_cudnn():
+                _warm_up_restored(st, lambda: self._step(0), self.device)
+                self.capture = graphs.capture(
+                    lambda: torch.stack([self._step(j) for j in range(n)]),
+                    self.device,
+                    lambda: model_reads() + _optimizer_tensors(opt))
+        else:
+            if key != self.key:
+                raise ValueError('StepGraph: the inputs differ in shape or '
+                                 'dtype from those it was captured with')
+            for buf, t in zip(graphs.tensors_of(self.inputs),
+                              graphs.tensors_of(inputs)):
+                buf.copy_(t)
+        graphs.replay(self.capture)
+        st.step += n
+        return self.capture.outputs.clone()
+
+
+class _Scan:
+    """:func:`make_scan_step`'s ``fn``: the draws, then the steps."""
+
+    def __init__(self, steps: Callable[[list], torch.Tensor],
+                 draw: Callable[[torch.Generator], object], n_inner: int):
+        self.steps, self.draw, self.n_inner = steps, draw, n_inner
+
+    @property
+    def capture(self) -> graphs.Captured | None:
+        return getattr(self.steps, 'capture', None)
+
+    def __call__(self, generator: torch.Generator) -> torch.Tensor:
+        return self.steps([self.draw(generator)
+                           for _ in range(self.n_inner)])
 
 
 def make_scan_step(state: TrainState, batch_fn: BatchFn, n_inner: int,
@@ -221,74 +384,16 @@ def make_scan_step(state: TrainState, batch_fn: BatchFn, n_inner: int,
 
     Each call draws the ``n_inner`` batches' random numbers from
     ``generator`` first (``batch_fn.draw``, in the per-step loop's order,
-    so the stream is that loop's) and writes the schedule's rate of each
-    step into a device tensor.  On the card a CUDA graph then holds
-    ``n_inner`` x (``batch_fn.make`` -> forward -> loss -> backward ->
-    Adam): captured at the first call, after one warm-up step whose
-    effects are undone, and replayed by every call, with the draws copied
-    into its static buffers.  Adam runs ``capturable`` with a tensor rate
-    (:func:`_capturable`; the checkpoints store the plain form).  The
-    gradients' norm is not computed.  On the CPU the same steps run
-    eagerly (:func:`train_step`), as the per-step loop runs them.
-
-    The graph reads the model and the optimizer where they lie: both
-    change in place only.  It is not captured under
-    ``DistributedDataParallel``.  ``fn.capture`` holds the graph's
+    so the stream is that loop's), then runs :func:`make_train_steps`'s
+    program of ``n_inner`` x (``batch_fn.make`` -> forward -> loss ->
+    backward -> Adam): one CUDA graph replay on the card, the same steps
+    eagerly on the CPU.  ``fn.capture`` holds the graph's
     :class:`~utils.graphs.Captured` once there is one.
     """
-    if n_inner < 1:
-        raise ValueError(f'make_scan_step: n_inner={n_inner} < 1')
-    device = next(state.model.parameters()).device
-    if device.type != 'cuda':
-        def run_eager(generator: torch.Generator) -> torch.Tensor:
-            return torch.stack([
-                train_step(state, batch_fn.make(batch_fn.draw(generator)),
-                           loss_w)['loss'] for _ in range(n_inner)])
-        return run_eager
-    if state.train_model is not state.model:
-        raise NotImplementedError('make_scan_step: the graph is not '
-                                  'captured under DistributedDataParallel')
-    return _ScanGraph(state, batch_fn, n_inner, loss_w, device)
-
-
-class _ScanGraph:
-    """:func:`make_scan_step`'s ``fn`` on the card."""
-
-    def __init__(self, state: TrainState, batch_fn: BatchFn, n_inner: int,
-                 loss_w: float, device: torch.device):
-        self.state, self.batch_fn = state, batch_fn
-        self.n_inner, self.loss_w, self.device = n_inner, loss_w, device
-        self.lr = _capturable(state.optimizer, device)
-        self.lrs = torch.zeros((n_inner,), dtype=torch.float32,
-                               device=device)
-        self.draws: list = []
-        self.capture: graphs.Captured | None = None
-
-    def _step(self, j: int) -> torch.Tensor:
-        self.lr.copy_(self.lrs[j])
-        return _scan_update(self.state, self.batch_fn.make(self.draws[j]),
-                            self.loss_w)
-
-    def __call__(self, generator: torch.Generator) -> torch.Tensor:
-        st, n = self.state, self.n_inner
-        new = [self.batch_fn.draw(generator) for _ in range(n)]
-        for j in range(n):
-            self.lrs[j].fill_(st.schedule(st.step + j))
-        st.train_model.train()
-        if self.capture is None:
-            self.draws = new
-            with torch.cuda.device(self.device):
-                _warm_up_restored(st, lambda: self._step(0), self.device)
-                self.capture = graphs.capture(
-                    lambda: torch.stack([self._step(j) for j in range(n)]),
-                    self.device)
-        else:
-            for buf, t in zip(graphs.tensors_of(self.draws),
-                              graphs.tensors_of(new)):
-                buf.copy_(t)
-        graphs.replay(self.capture)
-        st.step += n
-        return self.capture.outputs.clone()
+    steps = make_train_steps(
+        state, lambda model, draws: heatmap_step_loss(
+            model, batch_fn.make(draws), loss_w), n_inner)
+    return _Scan(steps, batch_fn.draw, n_inner)
 
 
 @torch.no_grad()

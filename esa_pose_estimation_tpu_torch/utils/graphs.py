@@ -32,7 +32,12 @@ call and passes the draws in, as JAX passes its ``key``), reads nothing
 back to the host, and copies nothing from host memory.  It reads each
 module's parameters and buffers where they lie at capture: they may
 change in place (an optimizer step, ``load_state_dict``), but not be
-replaced.
+replaced.  Each capture keeps the storage pointers of the tensors it
+reads in place (:func:`storage_pointers`: a module's parameters and
+buffers; a training graph's gradients and optimizer state too) and every replay compares them with
+the current ones first (:func:`check_pointers`): a replaced tensor
+(``m.to(dtype)``, ``load_state_dict(..., assign=True)``) raises rather
+than replay against freed memory.
 
 The kernels' launch counts (``peak_decode.launches`` and the others)
 follow the device: the capture launches nothing, so the counts it added
@@ -43,7 +48,7 @@ from __future__ import annotations
 
 import time
 import weakref
-from typing import Callable, NamedTuple
+from typing import Callable, Iterable, NamedTuple
 
 import torch
 from torch import nn
@@ -114,6 +119,18 @@ def tree_map(fn, x):
     return x
 
 
+def _modules_of(x) -> list[nn.Module]:
+    """The modules among a call's arguments (nested tuples, lists and
+    dicts)."""
+    if isinstance(x, nn.Module):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [m for v in x for m in _modules_of(v)]
+    if isinstance(x, dict):
+        return [m for v in x.values() for m in _modules_of(v)]
+    return []
+
+
 def tensors_of(x) -> list[torch.Tensor]:
     """The tensors of a tree, in :func:`tree_map`'s order."""
     out: list[torch.Tensor] = []
@@ -135,17 +152,65 @@ def _counted() -> tuple:
     return (peak_decode, fused_cbam, branch_chain)
 
 
+def tensor_reader(modules: Iterable[nn.Module], grads: bool = False
+                  ) -> Callable[[], list]:
+    """A function that lists the parameters and buffers of ``modules`` as
+    they stand when it is called, and with ``grads`` the parameters'
+    gradients (None where there is none).  It reads the submodules' own
+    dicts, found once, so it is cheap enough to run before every replay,
+    and sees a parameter that was replaced, not only one whose data was."""
+    subs = {id(m): m for root in modules for m in root.modules()}.values()
+    params = [m._parameters for m in subs if m._parameters]
+    buffers = [m._buffers for m in subs if m._buffers]
+
+    def read() -> list:
+        ps = [p for d in params for p in d.values() if p is not None]
+        out = ps + [b for d in buffers for b in d.values() if b is not None]
+        if grads:
+            out += [p.grad for p in ps]
+        return out
+    return read
+
+
+def storage_pointers(tensors: Iterable) -> tuple[int, ...]:
+    """The ``data_ptr`` of each tensor, 0 for None."""
+    return tuple(0 if t is None else t.data_ptr() for t in tensors)
+
+
+def check_pointers(recorded: tuple[int, ...], current: tuple[int, ...]
+                   ) -> None:
+    """Raise unless ``current`` equals the pointers recorded at capture:
+    a graph replays against the storage it captured, so a tensor that was
+    replaced since (not written in place) would be read or written where
+    it no longer lies."""
+    if recorded == current:
+        return
+    moved = ([i for i, (a, b) in enumerate(zip(recorded, current)) if a != b]
+             if len(recorded) == len(current) else [])
+    raise RuntimeError(
+        f'a CUDA graph reads {len(recorded)} tensors where they lay at '
+        f'capture, and {len(moved) or "some"} of them were replaced since '
+        f'(positions {moved[:8]}; {len(current)} now): change parameters, '
+        f'buffers and optimizer state in place, or capture a new graph')
+
+
 class Captured(NamedTuple):
     graph: torch.cuda.CUDAGraph
     outputs: object            # the graph's static outputs
     launches: tuple[int, ...]  # kernel launches per replay, _counted()'s order
     seconds: float             # the capture's host time
     pool_bytes: int            # memory the capture added to the pool
+    reads: Callable[[], list]  # the tensors the graph reads in place
+    pointers: tuple[int, ...]  # their storage at capture
 
 
-def capture(fn: Callable[[], object], device: torch.device) -> Captured:
+def capture(fn: Callable[[], object], device: torch.device,
+            reads: Callable[[], list] = list) -> Captured:
     """Capture ``fn()`` on ``device`` into the shared pool.  The caller has
-    warmed ``fn`` up; an error inside the capture raises."""
+    warmed ``fn`` up; an error inside the capture raises.  ``reads()``
+    lists the tensors outside the graph's inputs that it reads or writes
+    in place (:func:`tensor_reader`), which every :func:`replay`
+    checks."""
     counters = _counted()
     before = [c.launches for c in counters]
     torch.cuda.synchronize(device)
@@ -164,10 +229,14 @@ def capture(fn: Callable[[], object], device: torch.device) -> Captured:
     for c, b in zip(counters, before):
         c.launches = b                  # the capture launched nothing
     return Captured(graph, outputs, launches, seconds,
-                    torch.cuda.memory_reserved(device) - reserved)
+                    torch.cuda.memory_reserved(device) - reserved, reads,
+                    storage_pointers(reads()))
 
 
 def replay(cap: Captured) -> None:
+    """Replay ``cap`` once its tensors are checked where they lay at
+    capture (:func:`check_pointers`); the launch counts follow."""
+    check_pointers(cap.pointers, storage_pointers(cap.reads()))
     cap.graph.replay()
     for c, n in zip(_counted(), cap.launches):
         c.launches += n
@@ -208,9 +277,11 @@ class Graphed:
 
     def _capture(self, args, kwargs, device):
         s_args, s_kwargs = tree_map(torch.clone, (args, kwargs))
+        modules = _modules_of((args, kwargs))
         with torch.cuda.device(device):
             warm_up(lambda: self.fn(*s_args, **s_kwargs), device)
-            cap = capture(lambda: self.fn(*s_args, **s_kwargs), device)
+            cap = capture(lambda: self.fn(*s_args, **s_kwargs), device,
+                          tensor_reader(modules))
         return cap, s_args, s_kwargs
 
     def stats(self) -> list[dict]:

@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from esa_pose_estimation_tpu_torch.core.camera import project_points
+from esa_pose_estimation_tpu_torch.core.camera import project_camera_points
 
 _Z_NEAR = 1e-6
 
@@ -126,13 +126,20 @@ def _chunk_geometry(uv, z, tri, px, py):
 
 def _flat_poses(vertices, R, t, K):
     """Poses flattened to (B, ...): the leading shape, R, t, the projected
-    vertices (B, V, 2) and their camera-frame points (B, V, 3)."""
+    vertices (B, V, 2) and their camera-frame points (B, V, 3).
+
+    ``R v + t`` is summed over j = 0, 1, 2 in that order, element-wise, so
+    each pose's points do not depend on the batch it is rendered in (a
+    batched product's reduction order follows the batch size on some
+    hosts) and the render is a capturable chain of element-wise kernels."""
     lead = R.shape[:-2]
     R = R.reshape(-1, 3, 3)
     t = t.reshape(-1, 3)
-    uv = project_points(vertices, R, t, K)
-    cam = torch.einsum('bij,nj->bni', R, vertices) + t[:, None]
-    return lead, uv, cam
+    v = vertices[None, :, None, :]                     # (1, V, 1, 3)
+    Rb = R[:, None]                                    # (B, 1, 3, 3)
+    cam = (Rb[..., 0] * v[..., 0] + Rb[..., 1] * v[..., 1]
+           + Rb[..., 2] * v[..., 2]) + t[:, None]
+    return lead, project_camera_points(cam, K), cam
 
 
 def rasterize(vertices: torch.Tensor, faces: torch.Tensor, R: torch.Tensor,
