@@ -88,7 +88,15 @@ ground truth, and times the path.  Phases:
  15. group       three f32 hrnet_tiny steps in a one-rank NCCL group
                  (wrap_data_parallel, the group-aware BatchNorm) against
                  the same steps with no group, at 12a's tolerances; the
-                 group is destroyed after
+                 group is destroyed after; (b) in a one-rank NCCL group
+                 made for graphs, hrnet_esa from r5 at batch 32 under DDP:
+                 the synthetic scan (4 steps a graph) and the shard
+                 route's step on host crops, each replayed and launched
+                 one by one from one start, torch.equal in losses,
+                 parameters, statistics and Adam; collective calls in
+                 each capture, NCCL kernels in one replay; a second scan
+                 graph of 2 steps; eager and replay ms per step, capture
+                 seconds, pool and peak memory
  16. linemod     the LINEMOD/PVNet family at crop 128, 9 keypoints, batch
                  16: (a) ideal targets of rendered poses through heatmaps
                  -> K1 -> RANSAC-EPnP and through the vertex field ->
@@ -202,7 +210,8 @@ ROOT = Path(__file__).resolve().parent
 ARTIFACT = str(ROOT / 'artifacts' / 'esa_syn_r5.npz')
 SEED = 20261016
 DEVICE = 'cuda'
-WORK = ''       # main's scratch directory: phase 14's shards, reused by 21
+WORK = ''       # main's scratch directory: phase 14's shards, for 15b and 21
+CARD = ''       # the card's name and power limit, as nvidia-smi gives them
 
 
 def log(msg: str) -> None:
@@ -229,6 +238,8 @@ def phase_device() -> str:
         capture_output=True, text=True, timeout=60, check=True)
     line = smi.stdout.strip().splitlines()[0]
     log(line)                       # name, power limit: as nvidia-smi says
+    global CARD
+    CARD = line
     log(f'torch {torch.__version__} cuda {torch.version.cuda} '
         f'device {torch.cuda.get_device_name(0)} '
         f'count {torch.cuda.device_count()}')
@@ -1745,6 +1756,7 @@ def phase_detector(model, pts) -> int:
 
     from esa_pose_estimation_tpu_torch.cli import eval_synthetic
     from esa_pose_estimation_tpu_torch.cli import train_detector
+    from esa_pose_estimation_tpu_torch.cli.mfu_experiments import StepRoutes
     from esa_pose_estimation_tpu_torch.data import synthetic
     from esa_pose_estimation_tpu_torch.models.detector import TinyDetector
     from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
@@ -1945,6 +1957,7 @@ def phase_shards(pts, synthetic_rates: dict[int, float]) -> int:
     import tempfile
 
     from esa_pose_estimation_tpu_torch.cli import train
+    from esa_pose_estimation_tpu_torch.cli.mfu_experiments import StepRoutes
     from esa_pose_estimation_tpu_torch.cli.mfu_experiments import r5_masters
     from esa_pose_estimation_tpu_torch.data import native_loader, shards
     from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
@@ -2096,6 +2109,76 @@ def phase_group() -> None:
                              'steps without a group')
 
 
+GROUP_BATCH = 32          # 15b: hrnet_esa's batch, the TrainConfig default
+
+
+def phase_group_graphs() -> None:
+    """15b: the training programs as CUDA graphs under
+    DistributedDataParallel in a one-rank NCCL group, made as
+    ``parallel/distributed.initialize`` makes a group (NCCL's asynchronous
+    error handling off) and wrapped as ``cli.train`` wraps the model (on a
+    side stream): ``hrnet_esa`` from r5 at batch 32, the synthetic scan
+    (``make_scan_step``, 4 steps a graph) and the shard route's step on
+    host crops of phase 14's raw shard (``make_train_steps(st,
+    data/pipeline.step_loss)``), each replayed and launched one by one
+    (``StepGraph.run_eagerly``) from one start on the same draws
+    (``cli/mfu_experiments.program_pair``): losses, parameters, running
+    statistics and Adam's state torch.equal; the collective calls inside
+    each capture, by the profiler (more than 0), and the device kernels of
+    one replay of the step graph, NCCL's among them (none in one rank:
+    NCCL sums one rank's tensor in place without a kernel; four cards
+    launch them, ``mfu_experiments --ddp``); the scan's second graph, of
+    2 steps, captured after the first replayed and torch.equal to its
+    twin; eager and replay ms per step, capture seconds, pool and peak
+    memory.  The group is destroyed after."""
+    import torch.distributed as dist
+
+    from esa_pose_estimation_tpu_torch.cli import mfu_experiments as mfu
+    from esa_pose_estimation_tpu_torch.parallel.distributed import (
+        prepare_nccl_for_graphs,
+    )
+    t0 = time.perf_counter()
+    prepare_nccl_for_graphs()
+    dist.init_process_group('nccl', init_method=f'tcp://localhost:'
+                            f'{free_port()}', world_size=1, rank=0)
+    try:
+        dev = torch.device('cuda', torch.cuda.current_device())
+        rows = [mfu.program_pair(route, GROUP_BATCH, dev, f'{WORK}/raw.spd',
+                                 seed=SEED) for route in ('scan', 'shard')]
+    finally:
+        dist.destroy_process_group()
+    for row in rows:
+        rep = row.get('replay')
+        log(f'group 15b {row["route"]} (hrnet_esa from r5, batch '
+            f'{GROUP_BATCH}, {row["steps"]} steps, {row["steps_per_graph"]}'
+            f' a graph, one-rank NCCL group, DDP): against the same steps '
+            f'launched one by one, losses equal {row["losses_equal"]}, '
+            f'parameters, statistics and Adam equal {row["state_equal"]}'
+            + (f', the second graph (2 steps, captured after the first '
+               f'replayed) equal {row["second_graph_equal"]}'
+               if row['route'] == 'scan' else '')
+            + f'; {row["capture"]["collective_calls"]} collective calls '
+            f'in the capture'
+            + (f'; one replay: {rep["kernels"]} kernels, '
+               f'{rep["nccl_kernels"]} of NCCL' if rep else '')
+            + f'; eager {row["eager_ms"]:.1f} ms per step, replay '
+            f'{row["replay_ms"]:.1f} (runs '
+            f'{[round(v, 1) for v in row["eager_runs"]]}, '
+            f'{[round(v, 1) for v in row["replay_runs"]]}); capture '
+            f'{row["capture_s"]:.2f} s, pool +{row["pool_gib"]:.2f} GiB, '
+            f'peak {row["peak_gib"]:.2f} GiB; {CARD}')
+    log(f'group 15b: destroyed {not dist.is_initialized()}; '
+        f'{time.perf_counter() - t0:.1f} s')
+    # one rank: NCCL carries a sum out in place with no kernel, so the
+    # collectives show as calls inside the capture, not in the replay
+    for row in rows:
+        if not (row['all_equal'] and row['finite']
+                and row['capture']['collective_calls'] > 0):
+            raise AssertionError(f'group 15b {row["route"]}: {row}')
+    if dist.is_initialized():
+        raise AssertionError('group 15b: the group was not destroyed')
+
+
 # phase 16: the LINEMOD/PVNet family at the command's full width
 LM_SIZE, LM_KP, LM_BATCH = 128, 9, 16
 LM_CLI = ('--epochs', '2', '--steps-per-epoch', '50', '--batch-size', '16',
@@ -2225,6 +2308,7 @@ def linemod_commands(root: str) -> int:
     the second epoch below the first; ms per step, images/s, peak memory,
     K1's launches in the heatmap eval.  Returns those launches."""
     from esa_pose_estimation_tpu_torch.cli import train_linemod
+    from esa_pose_estimation_tpu_torch.cli.mfu_experiments import StepRoutes
     from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
         peak_decode,
     )
@@ -2524,6 +2608,7 @@ def phase_rehearsal() -> tuple[int, int]:
     from esa_pose_estimation_tpu_torch.cli import dress_rehearsal
     from esa_pose_estimation_tpu_torch.cli import evaluate as eval_cli
     from esa_pose_estimation_tpu_torch.cli import train as train_cli
+    from esa_pose_estimation_tpu_torch.cli.mfu_experiments import StepRoutes
     t0 = time.perf_counter()
     no_panels = panel_args()
     with tempfile.TemporaryDirectory() as root:
@@ -3309,41 +3394,6 @@ def phase_graphs(model, pts, s) -> tuple[int, int]:
     return replay
 
 
-class StepRoutes:
-    """Counts, while open, the calls of the training programs' graphs
-    (``train/state.StepGraph``) and the eager optimizer steps on the card
-    (``train/state.optimize``): a command that trains through its graph
-    takes none of the latter."""
-
-    def __enter__(self):
-        from esa_pose_estimation_tpu_torch.train import state as tstate
-        self.tstate, self.graph_calls, self.eager_steps = tstate, 0, 0
-        self.real = real_call, real_opt = (tstate.StepGraph.__call__,
-                                           tstate.optimize)
-
-        def call(graph, inputs):
-            self.graph_calls += 1
-            return real_call(graph, inputs)
-
-        def optimize(state, loss_fn):
-            if next(state.model.parameters()).is_cuda:
-                self.eager_steps += 1
-            return real_opt(state, loss_fn)
-        tstate.StepGraph.__call__, tstate.optimize = call, optimize
-        return self
-
-    def __exit__(self, *exc):
-        self.tstate.StepGraph.__call__, self.tstate.optimize = self.real
-
-    def check(self, label: str) -> str:
-        if self.graph_calls == 0 or self.eager_steps:
-            raise AssertionError(f'{label}: {self.graph_calls} graph calls, '
-                                 f'{self.eager_steps} eager steps on the '
-                                 'card')
-        return (f'{self.graph_calls} graph calls, no eager step on the '
-                f'card')
-
-
 # phase 21: steps of each per-step program, steps of the LINEMOD epoch
 # graph (the command captures --steps-per-epoch, 50)
 STEP_PROGRAM_STEPS = 4
@@ -3616,6 +3666,7 @@ def pickle_command(split_path: str) -> int:
     import tempfile
 
     from esa_pose_estimation_tpu_torch.cli import train
+    from esa_pose_estimation_tpu_torch.cli.mfu_experiments import StepRoutes
     from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
         peak_decode,
     )
@@ -3694,6 +3745,7 @@ def run() -> None:
     k1['launches_two_stage_eval'] = phase_detector(model, pts)
     k1['launches_shard_train_eval'] = phase_shards(pts, rates)
     phase_group()
+    phase_group_graphs()
     k1['launches_linemod_eval'] = phase_linemod()
     (k1['launches_rehearsal_train_eval'],
      k1['launches_rehearsal_evaluate']) = phase_rehearsal()

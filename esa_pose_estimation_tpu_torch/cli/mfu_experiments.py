@@ -2,7 +2,8 @@
 
     python -m esa_pose_estimation_tpu_torch.cli.mfu_experiments [--chain |
         --int8 | --int8-matmul | --cluster-sweep | --repeat | --k2-case |
-        --determinism]
+        --determinism | --ddp [--coordinator host:port --num-processes N
+        --process-id i]]
 
 Port of the JAX package's ``scripts/mfu_experiments.py``.  Every mode times
 on the card with CUDA events and reports its share of the card's bf16
@@ -56,6 +57,30 @@ CUDA device.  Modes:
   deterministic ones (the training path's,
   ``train/state.deterministic_cudnn``), both backwards: whether losses,
   parameters and statistics are bit-equal.
+* ``--ddp``: the training programs of ``cli.train`` under
+  ``DistributedDataParallel``, one process per card, started as the
+  README's loop of ``cli.train`` processes is (``--coordinator host:port
+  --num-processes N --process-id i``; without them one process trains
+  alone, with no wrapper: the one-card reference).  Rank 0 writes a
+  synthetic SPD1 shard of 512 1920x1200 frames under ``--workdir``.  At
+  32 and 64 images a card, ``hrnet_esa`` from r5 (f32 masters, bf16
+  compute) runs the synthetic scan (``make_scan_step``, 4 steps a graph)
+  and the shard route's step on host crops (``make_train_steps(st,
+  data/pipeline.step_loss)``), each replayed on one state and launched one
+  by one (``StepGraph.run_eagerly``) on another from the same start and
+  draws: losses, parameters, statistics and Adam's state must be
+  ``torch.equal`` on every rank, and every rank's states bit-equal to rank
+  0's; the scan captures a second graph, of 2 steps, after the first has
+  replayed, held to its twin the same way; ms per step and images/s
+  (all cards') both ways in turns; capture seconds, pool, peak memory;
+  the collective calls in a capture and the device kernels of one
+  replay, NCCL's among them (more than 0 of each under several
+  processes); under several processes, each all-reduce size of a step,
+  eager against captured.  Then, under several processes, ``cli.train``
+  for 2 epochs on the synthetic route and on ``--train-shard
+  --host-crop``: no eager step on the card, K1 in every rank's eval, the
+  same finite epoch losses in every rank's log.  ``--device cpu --tiny``
+  rehearses it under gloo.
 * ``--k2-case``: two launches of the fused CBAM kernel on one input at
   batch 64, 64x64x32 with residual (R = 5 CTAs per image), the case in
   which two launches once differed (ROADMAP.md section 3, fault 2), and
@@ -73,7 +98,9 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import sys
+import time
 from pathlib import Path
 from typing import Callable, NamedTuple
 
@@ -520,11 +547,11 @@ def training_cases(dev, n_steps: int, hrnet_batches=(32,),
 
 
 def trained_equal(a, b) -> bool:
-    """Whether two trained states hold bit-equal parameters and
-    statistics."""
-    return all(torch.equal(x, y) for x, y in zip(
-        list(a.model.parameters()) + list(a.model.buffers()),
-        list(b.model.parameters()) + list(b.model.buffers())))
+    """Whether two trained states hold bit-equal parameters, statistics
+    and optimizer state."""
+    from esa_pose_estimation_tpu_torch.train.state import state_tensors
+    x, y = state_tensors(a), state_tensors(b)
+    return len(x) == len(y) and all(torch.equal(u, v) for u, v in zip(x, y))
 
 
 @contextlib.contextmanager
@@ -627,6 +654,471 @@ def determinism_experiment(n_steps: int = 4) -> dict:
     return results
 
 
+# --- several processes: the training programs under DDP --------------------
+
+DDP_BATCHES = (32, 64)          # per card: global 128 and 256 on four
+DDP_SCAN_STEPS = 4              # steps in one graph of the synthetic scan
+DDP_CALLS = {'scan': 3, 'shard': 5}   # calls per program; the first untimed
+DDP_SHARD_RECORDS = 512
+
+
+class StepRoutes:
+    """Counts, while open, the calls of the training programs' graphs
+    (``train/state.StepGraph``) and the eager optimizer steps on the card
+    (``train/state.optimize``): a command that trains through its graph
+    takes none of the latter."""
+
+    def __enter__(self):
+        from esa_pose_estimation_tpu_torch.train import state as tstate
+        self.tstate, self.graph_calls, self.eager_steps = tstate, 0, 0
+        self.real = real_call, real_opt = (tstate.StepGraph.__call__,
+                                           tstate.optimize)
+
+        def call(graph, inputs):
+            self.graph_calls += 1
+            return real_call(graph, inputs)
+
+        def optimize(state, loss_fn):
+            if next(state.model.parameters()).is_cuda:
+                self.eager_steps += 1
+            return real_opt(state, loss_fn)
+        tstate.StepGraph.__call__, tstate.optimize = call, optimize
+        return self
+
+    def __exit__(self, *exc):
+        self.tstate.StepGraph.__call__, self.tstate.optimize = self.real
+
+    def check(self, label: str) -> str:
+        if self.graph_calls == 0 or self.eager_steps:
+            raise AssertionError(f'{label}: {self.graph_calls} graph calls, '
+                                 f'{self.eager_steps} eager steps on the '
+                                 'card')
+        return (f'{self.graph_calls} graph calls, no eager step on the '
+                f'card')
+
+
+def replica_state(dev, tiny: bool = False):
+    """A train state of ``hrnet_esa`` from r5 (f32 masters, bf16 compute;
+    ``tiny``: ``hrnet_tiny`` in f32 from a seed) at 12c's rate, wrapped by
+    ``parallel/mesh.wrap_data_parallel`` when a group is joined.  Every
+    rank starts elsewhere (its own seed; r5 plus the rank), so the
+    replicas agree only if the wrapper broadcast rank 0's parameters
+    before the first step."""
+    from esa_pose_estimation_tpu_torch.models.hrnet import HRNet
+    from esa_pose_estimation_tpu_torch.parallel import distributed as pdist
+    from esa_pose_estimation_tpu_torch.parallel.mesh import (
+        wrap_data_parallel,
+    )
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+    from esa_pose_estimation_tpu_torch.utils import config as cfg_mod
+    from esa_pose_estimation_tpu_torch.utils.seeding import generator
+    if tiny:
+        model = HRNet(cfg_mod.hrnet_tiny()).to(dev).init_weights(
+            generator(dev, SEED, pdist.rank()))
+    else:
+        model = r5_masters(dev)
+        if pdist.rank():
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.add_(float(pdist.rank()))
+    st = tstate.create_train_state(
+        model, cfg_mod.TrainConfig(lr_boundaries=(0, 100, 170)), 1000)
+    if torch.distributed.is_initialized():
+        st.train_model = wrap_data_parallel(model)
+    return st
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == 'cuda':
+        torch.cuda.synchronize(dev)
+
+
+def _ranks(values: list[int], dev) -> list[list[int]]:
+    """``values`` of every rank, in rank order (this rank's alone without
+    a group)."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return [list(values)]
+    t = torch.tensor(values, dtype=torch.int64, device=dev)
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, t)
+    return [o.tolist() for o in out]
+
+
+def replicas_equal(st) -> bool:
+    """Whether this rank's parameters, statistics and optimizer state are
+    bit-equal to rank 0's (each broadcast from rank 0 and compared); True
+    without a group."""
+    import torch.distributed as dist
+
+    from esa_pose_estimation_tpu_torch.train.state import state_tensors
+    if not dist.is_initialized():
+        return True
+    dev = next(st.model.parameters()).device
+    same = True
+    for t in state_tensors(st):
+        ref = t.detach().to(dev).clone()
+        dist.broadcast(ref, 0)
+        same &= torch.equal(ref, t.detach().to(dev))
+    return same
+
+
+def replay_collectives(call, dev) -> dict:
+    """One ``call()`` (a replay) under torch.profiler: its device kernels,
+    and those of NCCL among them, by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    _sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        _sync(dev)
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    nccl = sorted({n for n in names if 'nccl' in n.lower()})
+    return {'kernels': len(names),
+            'nccl_kernels': sum('nccl' in n.lower() for n in names),
+            'nccl_names': nccl[:4]}
+
+
+def collective_sweep(st, dev) -> list[dict]:
+    """Each all-reduce size of a training step of ``st`` under its DDP
+    wrapper (the loss, 1; each BatchNorm's statistics, 2c + 1; each of
+    DDP's gradient buckets, as its logging data gives them), once eagerly
+    and once captured in a CUDA graph on one input drawn from this rank's
+    seed: whether the two sums are bit-equal, on every rank."""
+    import torch.distributed as dist
+
+    from esa_pose_estimation_tpu_torch.models.layers import BatchNorm
+    from esa_pose_estimation_tpu_torch.parallel import distributed as pdist
+    from esa_pose_estimation_tpu_torch.utils.seeding import generator
+    buckets = st.train_model._get_ddp_logging_data()['bucket_sizes']
+    sizes = ({1} | {2 * m.weight.numel() + 1 for m in st.model.modules()
+                    if isinstance(m, BatchNorm)}
+             | {int(b) // 4 for b in buckets.split(',') if b})
+    rows = []
+    for n in sorted(sizes):
+        x = torch.randn(n, generator=generator(dev, SEED, 3, n,
+                                               pdist.rank()), device=dev)
+        eager, buf = x.clone(), x.clone()
+        dist.all_reduce(eager)
+        _sync(dev)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            dist.all_reduce(buf)
+        buf.copy_(x)
+        graph.replay()
+        _sync(dev)
+        rows.append({'numel': n, 'equal': [
+            r[0] for r in _ranks([int(torch.equal(eager, buf))], dev)]})
+    return rows
+
+
+@contextlib.contextmanager
+def capture_collectives():
+    """While open, each graph capture (``utils/graphs.capture``) runs under
+    torch.profiler (host side, every thread: the backward's too); yields
+    a dict that then holds the captures and the collective calls made in
+    them (PyTorch's ``nccl:all_reduce`` ranges, one per all-reduce):
+    those a replay launches, however NCCL carries them out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from esa_pose_estimation_tpu_torch.utils import graphs
+    real, found = graphs.capture, {'captures': 0, 'collective_calls': 0}
+
+    def observed(*args, **kwargs):
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            cap = real(*args, **kwargs)
+        found['captures'] += 1
+        found['collective_calls'] += sum(
+            e.name.startswith('nccl:') for e in prof.events())
+        return cap
+    graphs.capture = observed
+    try:
+        yield found
+    finally:
+        graphs.capture = real
+
+
+def program_pair(route: str, batch: int, dev, shard: str,
+                 tiny: bool = False, seed: int = SEED) -> dict:
+    """One training program of ``cli.train`` under this process's group,
+    from one start on two states: replayed (``route`` 'scan':
+    ``make_scan_step``, ``DDP_SCAN_STEPS`` steps a graph, synthetic
+    batches; 'shard': ``make_train_steps(st, data/pipeline.step_loss)``,
+    a step a graph, host crops from ``shard``, this rank's records) and
+    launched one by one (``StepGraph.run_eagerly``; ``run_steps`` on the
+    CPU) on the same draws.  Each rank draws its own
+    (``generator(dev, seed, ..., rank)``).  Then, for the scan, a second
+    graph of another length, captured after the first has replayed, and
+    its twin.  Returns the losses' and states' bit-equality on this rank
+    and every rank's, the replicas' equality across ranks, ms per step
+    both ways in turns (the first call untimed), capture seconds, pool
+    and peak memory, the collective calls in the first capture
+    (:func:`capture_collectives`), the largest parameter and statistic
+    differences between the two states, and, for the shard route, the
+    kernels of one replay (NCCL's among them: :func:`replay_collectives`)
+    and, under several processes, each all-reduce size eager against
+    captured (:func:`collective_sweep`)."""
+    import itertools
+
+    from esa_pose_estimation_tpu_torch.data import pipeline as dp
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.parallel import distributed as pdist
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+    from esa_pose_estimation_tpu_torch.utils.seeding import generator
+    rank, world = pdist.rank(), pdist.world_size()
+    cuda = torch.device(dev).type == 'cuda'
+    crop = 32 if tiny else 128
+    pts = synthetic.spacecraft_points(device=dev, n=6 if tiny else 30)
+    a, b = replica_state(dev, tiny), replica_state(dev, tiny)
+
+    def eager_program(st, loss_fn, n):
+        if cuda:
+            return tstate.StepGraph(st, loss_fn, n, dev).run_eagerly
+        return lambda x: tstate.run_steps(st, loss_fn, x)
+
+    if route == 'scan':
+        n_inner = DDP_SCAN_STEPS
+        fn = tstate.BatchFn(
+            draw=lambda g: synthetic.draw_batch(g, batch, crop, device=dev),
+            make=lambda d: synthetic.make_batch(None, batch, pts,
+                                                crop_size=crop, draws=d))
+
+        def loss_fn(m, d):
+            return tstate.heatmap_step_loss(m, fn.make(d))
+        ga, gb = (generator(dev, seed, 1, batch, rank) for _ in range(2))
+        twin = eager_program(a, loss_fn, n_inner)
+        scan = tstate.make_scan_step(b, fn, n_inner)
+
+        def run_a(i):
+            return twin([fn.draw(ga) for _ in range(n_inner)])
+
+        def run_b(i):
+            return scan(gb)
+        graph = scan
+    else:
+        from esa_pose_estimation_tpu_torch.data.native_loader import (
+            NativeBatchLoader,
+        )
+        n_inner = 1
+
+        def loss_fn(m, x):
+            return dp.step_loss(m, x, crop)
+        with NativeBatchLoader(shard, batch, shuffle=False, crop_size=crop,
+                               process_id=rank, process_count=world,
+                               device=dev) as loader:
+            host = list(itertools.islice(iter(loader), 2))
+        batches = [{k: v.to(dev) for k, v in h.items()
+                    if isinstance(v, torch.Tensor)} for h in host]
+        g = generator(dev, seed, 2, batch, rank)
+        calls = [[dp.step_inputs(batches[i % 2], g, crop)]
+                 for i in range(DDP_CALLS[route])]
+        twin = eager_program(a, loss_fn, n_inner)
+        graph = tstate.make_train_steps(b, loss_fn, n_inner)
+
+        def run_a(i):
+            return twin(calls[i])
+
+        def run_b(i):
+            return graph(calls[i])
+
+    def timed(call):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = call()
+        _sync(dev)
+        return out, (time.perf_counter() - t0) * 1e3 / n_inner
+    losses_equal = True
+    eager_ms, replay_ms = [], []
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(DDP_CALLS[route]):
+        if i % 2:
+            (lb, tb), (la, ta) = timed(lambda: run_b(i)), timed(
+                lambda: run_a(i))
+        elif i:
+            (la, ta), (lb, tb) = timed(lambda: run_a(i)), timed(
+                lambda: run_b(i))
+        else:               # the capture, its collectives counted
+            la, ta = timed(lambda: run_a(i))
+            with capture_collectives() as captured:
+                lb, tb = timed(lambda: run_b(i))
+        losses_equal &= torch.equal(la, lb)
+        if i:
+            eager_ms.append(ta)
+            replay_ms.append(tb)
+    row = {'route': route, 'batch_per_card': batch, 'processes': world,
+           'steps': DDP_CALLS[route] * n_inner, 'steps_per_graph': n_inner,
+           'first_loss': float(lb[0]), 'finite': bool(torch.isfinite(
+               lb).all()), 'capture': captured}
+    if cuda:
+        cap = graph.capture
+        row.update(capture_s=cap.seconds, pool_gib=cap.pool_bytes / 2**30,
+                   peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    state_equal = trained_equal(a, b)
+    with torch.no_grad():
+        row['param_max_abs'] = max(float((x - y).abs().max()) for x, y in
+                                   zip(a.model.parameters(),
+                                       b.model.parameters()))
+        row['stat_max_abs'] = max(float((x - y).abs().max()) for x, y in
+                                  zip(a.model.buffers(), b.model.buffers()))
+    second = True
+    if route == 'scan':
+        # a second graph, of another length, after the first replayed
+        twin2 = eager_program(a, loss_fn, 2)
+        scan2 = tstate.make_scan_step(b, fn, 2)
+        second = (torch.equal(twin2([fn.draw(ga) for _ in range(2)]),
+                              scan2(gb)) and trained_equal(a, b))
+    e_ms = sum(eager_ms) / len(eager_ms)
+    g_ms = sum(replay_ms) / len(replay_ms)
+    row.update(eager_ms=e_ms, replay_ms=g_ms,
+               eager_img_s=batch * world / e_ms * 1e3,
+               replay_img_s=batch * world / g_ms * 1e3,
+               eager_runs=eager_ms, replay_runs=replay_ms)
+    if cuda and route == 'shard':
+        row['replay'] = replay_collectives(lambda: run_b(0), dev)
+        if world > 1:
+            row['all_reduce_sizes'] = collective_sweep(b, dev)
+    flags = [int(losses_equal), int(state_equal), int(second),
+             int(replicas_equal(a)), int(replicas_equal(b))]
+    ranks = _ranks(flags, dev)
+    row.update(losses_equal=losses_equal, state_equal=state_equal,
+               second_graph_equal=second, ranks=ranks,
+               all_equal=all(all(r) for r in ranks))
+    return row
+
+
+def ddp_commands(dev, shard: str, root: str, tiny: bool = False) -> list:
+    """``cli.train`` in this process's group for 2 epochs at 32 images a
+    card (``tiny``: 2, ``hrnet_tiny`` at 32 px): the synthetic route (6
+    steps an epoch at ``--log-every 4``: a graph of 4 and one of the
+    tail's 2) and ``--train-shard --host-crop``, an eval at the second
+    epoch.  Per route: each rank's graph calls and eager steps on the
+    card (:class:`StepRoutes`), K1 launches in its eval, and whether every
+    rank's log holds the same epoch losses, finite."""
+    from esa_pose_estimation_tpu_torch.cli import train
+    from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
+        peak_decode,
+    )
+    from esa_pose_estimation_tpu_torch.parallel import distributed as pdist
+    rank, world = pdist.rank(), pdist.world_size()
+    per = 2 if tiny else 32
+    common = ['--epochs', '2', '--batch-size', str(per * world),
+              '--eval-every', '2', '--no-panels', '--device',
+              torch.device(dev).type]
+    if tiny:
+        common += ['--tiny', '--crop-size', '32']
+    if world > 1:
+        common += ['--num-processes', str(world), '--process-id', str(rank)]
+    rows = []
+    for route, extra in (
+            ('synthetic', ['--synthetic-size', str(6 * per * world),
+                           '--log-every', '4']),
+            ('shard_host_crop', ['--train-shard', shard, '--host-crop',
+                                 '--log-every', '1'])):
+        wd = os.path.join(root, route)
+        t0 = time.perf_counter()
+        peak_decode.launches = 0
+        with StepRoutes() as routes:
+            train.main(['--workdir', wd, *common, *extra])
+        _sync(dev)
+        counts = _ranks([routes.graph_calls, routes.eager_steps,
+                         peak_decode.launches], dev)
+        pdist.barrier()
+        logs = [open(os.path.join(wd, *([f'proc{r}'] if r else []),
+                                  'log_esa.txt')).read().splitlines()
+                for r in range(world)]
+        losses = [float(ln.split('\t')[2]) for ln in logs[0][1:]]
+        rows.append({
+            'route': route, 'processes': world, 'batch_per_card': per,
+            'seconds': time.perf_counter() - t0,
+            'graph_calls': [c[0] for c in counts],
+            'eager_steps': [c[1] for c in counts],
+            'k1_launches': [c[2] for c in counts],
+            'epoch_losses': losses,
+            'logs_equal': all(lg == logs[0] for lg in logs),
+            'finite': len(losses) == 2 and all(map(math.isfinite, losses))})
+    return rows
+
+
+def ddp_experiment(dev, root: str, tiny: bool = False,
+                   batches=DDP_BATCHES) -> dict:
+    """The ``--ddp`` mode (module docstring) in this process's group, or
+    alone without one.  Rank 0 prints each row; every rank raises if a
+    check failed."""
+    from esa_pose_estimation_tpu_torch.data import shards
+    from esa_pose_estimation_tpu_torch.parallel import distributed as pdist
+    rank, world = pdist.rank(), pdist.world_size()
+    shard = os.path.join(root, 'train.spd')
+    if rank == 0:
+        os.makedirs(root, exist_ok=True)
+        shards.write_synthetic_shard(
+            shard, 64 if tiny else DDP_SHARD_RECORDS,
+            **({'height': 240, 'width': 384, 'n_kp': 6} if tiny else {}),
+            device=dev)
+    pdist.barrier()
+    results: dict = {'processes': world}
+    failed = []
+
+    def report(key, row):
+        results[key] = row
+        if rank == 0:
+            print(json.dumps({key: row}), flush=True)
+    for batch in batches:
+        for route in ('scan', 'shard'):
+            row = program_pair(route, batch, dev, shard, tiny)
+            report(f'{route}_b{batch}', row)
+            cuda = torch.device(dev).type == 'cuda'
+            if cuda:                   # the program's states and graphs
+                torch.cuda.empty_cache()
+            # under several processes on the card, every capture holds
+            # collectives and a replay launches NCCL's kernels
+            if not (row['all_equal'] and row['finite'] and (
+                    not cuda or world == 1 or (
+                        row['capture']['collective_calls'] > 0
+                        and row.get('replay', {'nccl_kernels': 1})[
+                            'nccl_kernels'] > 0))):
+                failed.append(f'{route}_b{batch}')
+    for row in (ddp_commands(dev, shard, os.path.join(root, 'runs'), tiny)
+                if world > 1 else []):
+        report(f'cli_train_{row["route"]}', row)
+        cuda = torch.device(dev).type == 'cuda'
+        if not (row['logs_equal'] and row['finite'] and (not cuda or (
+                all(row['graph_calls']) and not any(row['eager_steps'])
+                and all(row['k1_launches'])))):
+            failed.append(f'cli_train_{row["route"]}')
+    pdist.barrier()
+    if rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    if failed:
+        raise AssertionError(f'--ddp: {failed} failed (rows above)')
+    return results
+
+
+def ddp_main(args) -> dict:
+    """``--ddp``: join the group the arguments name (none for one
+    process), run :func:`ddp_experiment`, leave the group."""
+    from esa_pose_estimation_tpu_torch.parallel import distributed as pdist
+    from esa_pose_estimation_tpu_torch.utils.artifact import target_device
+    dev = target_device(args.device, 'mfu_experiments --ddp')
+    joined = pdist.initialize(args.coordinator, args.num_processes,
+                              args.process_id, device=dev)
+    try:
+        if dev.type == 'cuda':
+            dev = torch.device('cuda', torch.cuda.current_device())
+        results = ddp_experiment(dev, args.workdir, args.tiny,
+                                 (2,) if args.tiny else DDP_BATCHES)
+        results['device'] = (torch.cuda.get_device_name(dev)
+                             if dev.type == 'cuda' else 'cpu')
+        if pdist.is_primary():
+            print(json.dumps(results))
+        return results
+    finally:
+        if joined:
+            pdist.shutdown()
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     mode = ap.add_mutually_exclusive_group()
@@ -637,7 +1129,21 @@ def main(argv=None) -> dict:
     mode.add_argument('--repeat', action='store_true')
     mode.add_argument('--k2-case', action='store_true')
     mode.add_argument('--determinism', action='store_true')
+    mode.add_argument('--ddp', action='store_true')
+    ddp = ap.add_argument_group('--ddp', 'several processes, one per card '
+                                '(none: one card alone)')
+    ddp.add_argument('--coordinator', default=None)
+    ddp.add_argument('--num-processes', type=int, default=None)
+    ddp.add_argument('--process-id', type=int, default=None)
+    ddp.add_argument('--workdir', default='build/ddp',
+                     help="the shard and cli.train's runs (removed after)")
+    ddp.add_argument('--device', default='cuda',
+                     help="'cpu' rehearses the mode under gloo")
+    ddp.add_argument('--tiny', action='store_true',
+                     help='hrnet_tiny at 32 px and batch 2 a process')
     args = ap.parse_args(argv)
+    if args.ddp:
+        return ddp_main(args)
     _require_cuda()
     if args.chain:
         results = chain_experiment()

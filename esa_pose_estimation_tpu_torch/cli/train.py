@@ -25,22 +25,26 @@ layout (data_load4.py:90-101) through ``data/speed.BatchLoader``.  Both
 keep two batches' copies to the card in flight, and train a step per
 batch through ``train/state.make_train_steps`` (the batch build and the
 step, ``data/pipeline.step_loss``: on the card one CUDA graph replay per
-step; eager per step under several processes).  Without either, the
-synthetic dataset (``data/synthetic.make_batch``) is generated on the
-device, ``--log-every`` steps at a time by ``train/state.make_scan_step``
-(on the card one CUDA graph replay per chunk; per step under several
-processes).  ``--test-pkl`` gives the held-out eval split of either route; a
-shard run without it evaluates on the shard's first four batches.
+step).  Without either, the synthetic dataset (``data/synthetic.make_batch``)
+is generated on the device, ``--log-every`` steps at a time by
+``train/state.make_scan_step`` (on the card one CUDA graph replay per
+chunk, and a second graph for an epoch's shorter tail).  Both hold for any
+number of processes.  ``--test-pkl`` gives the held-out eval split of
+either route; a shard run without it evaluates on the shard's first four
+batches.
 
 Several processes, one per card: ``--coordinator host:port
 --num-processes N --process-id i`` (or ``MASTER_ADDR``/``MASTER_PORT``,
 ``WORLD_SIZE``, ``RANK``) join one NCCL group (gloo with ``--device
 cpu``).  ``--batch-size`` is the global batch and must divide over the
 processes; each process streams its own slice of the records at its
-share of the batch, DistributedDataParallel averages the gradients, and
-the BatchNorm statistics are taken over the global batch
-(``models/layers.BatchNorm``).  Process i > 0 writes its logs and
-checkpoints under ``<workdir>/proc{i}``: the primary's are the run's.
+share of the batch, DistributedDataParallel averages the gradients, the
+BatchNorm statistics are taken over the global batch
+(``models/layers.BatchNorm``), and the loss each step reports is the
+global batch's (the mean over the processes), so every process logs the
+same losses, as the JAX package does.  Each graph holds its steps'
+collectives.  Process i > 0 writes its logs and checkpoints under
+``<workdir>/proc{i}``: the primary's are the run's.
 
 Each held-out eval draws the first four frames of its first batch as
 PNG panels under ``<workdir>/panels/epoch<NNN>/`` (``obs/visual.py``,
@@ -215,11 +219,8 @@ def train(args) -> dict:
     # the synthetic route runs make_scan_step, one per chunk length (the
     # JAX scan_cache); the shard and pickle routes a step program of one
     # step (the JAX make_sharded_train_step with build_batch), on the card
-    # one CUDA graph replay per step.  With several processes both stay
-    # eager per step: no graph is captured under DistributedDataParallel
-    # (ROADMAP item 2d)
-    one = n_proc == 1
-    scan = not (use_shard or use_real) and one
+    # one CUDA graph replay per call, for any number of processes
+    scan = not (use_shard or use_real)
     scans: dict[int, object] = {}
     if scan:
         batch_fn = state_mod.BatchFn(
@@ -230,22 +231,16 @@ def train(args) -> dict:
                 None, proc_batch, points_3d, crop_size=cfg.crop_size,
                 augment_geom=args.augment_geom,
                 augment_photo=args.augment_photo, draws=d))
-    elif not (use_shard or use_real):
-        print('synthetic route per step: the scan is not captured under '
-              f'DistributedDataParallel ({n_proc} processes)')
     else:
         def step_loss(model, x):
             return data_pipeline.step_loss(
                 model, x, cfg.crop_size, norm_mean, args.augment_geom,
                 args.augment_photo, cfg.loss_weight_w)
-        if one:
-            step = state_mod.make_train_steps(st, step_loss)
-        else:
-            print('data route per step and eager: no graph is captured '
-                  f'under DistributedDataParallel ({n_proc} processes)')
-
-            def step(inputs):
-                return state_mod.run_steps(st, step_loss, inputs)
+        step = state_mod.make_train_steps(st, step_loss)
+    print(f'training program: train/state.'
+          f'{"make_scan_step" if scan else "make_train_steps"}, '
+          f'{"a CUDA graph" if dev.type == "cuda" else "steps on the CPU"}'
+          f' per call, {n_proc} process(es)')
 
     # the running minima of the best gates survive a resume (sidecar)
     best: dict[str, float] = ckpt.load_best()
@@ -258,7 +253,7 @@ def train(args) -> dict:
             # each process draws its own augmentations (one process: the
             # stream of a single-card run)
             gen = generator(dev, 1234, epoch, *([rank] if n_proc > 1 else []))
-            if use_shard or use_real:
+            if not scan:
                 if use_shard:
                     src = iter(shard_loader)
                 else:
@@ -270,13 +265,6 @@ def train(args) -> dict:
                     args.augment_photo)
                     for b in data_pipeline.prefetch_to_device(src, dev,
                                                               size=2))
-            elif not scan:
-                batches = (
-                    synthetic.make_batch(gen, proc_batch, points_3d,
-                                         crop_size=cfg.crop_size,
-                                         augment_geom=args.augment_geom,
-                                         augment_photo=args.augment_photo)
-                    for _ in range(steps_per_epoch))
 
             # per-step losses stay on the device; the host reads one per
             # print interval (the reference's cadence, main.py:396-398)
@@ -301,11 +289,7 @@ def train(args) -> dict:
                               f'loss : {losses.avg:.6f}')
             else:
                 for i, batch in enumerate(batches):
-                    if use_shard or use_real:
-                        loss = step([batch])
-                    else:
-                        loss = state_mod.train_step(
-                            st, batch, cfg.loss_weight_w)['loss'][None]
+                    loss = step([batch])
                     loss_hist.append(loss)
                     if i % args.log_every == args.log_every - 1:
                         losses.update(float(loss[0]))

@@ -117,12 +117,10 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
     return out.permute(0, 3, 1, 2)
 
 
-def _group_size() -> int:
-    """The ranks of the default process group, 1 when there is none."""
+def _in_group() -> bool:
+    """Whether this process has joined a process group."""
     import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
+    return dist.is_available() and dist.is_initialized()
 
 
 def _global_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -147,12 +145,14 @@ class BatchNorm(nn.Module):
     that biased variance.  ``nn.BatchNorm2d`` stores the unbiased variance
     and counts momentum the other way, so it is not used.
 
-    Inside an initialised process group of more than one rank, training
-    mode takes the statistics over the global batch, as JAX does under
-    GSPMD: each rank's per-channel ``(sum x, sum x^2, count)`` are summed
-    over the ranks with the autograd ``all_reduce``, so the gradient flows
-    through the global statistics, and the rule above applies to them.
-    Every rank then holds the same running statistics.
+    Inside an initialised process group, of any size, training mode takes
+    the statistics over the global batch, as JAX does under GSPMD: each
+    rank's per-channel ``(sum x, sum x^2, count)`` are summed over the
+    ranks with the autograd ``all_reduce``, so the gradient flows through
+    the global statistics, and the rule above applies to them.  Every rank
+    then holds the same running statistics, and a one-rank group runs the
+    collectives that several ranks run.  Without a group the means are
+    taken locally.
     (``nn.SyncBatchNorm`` also keeps the unbiased variance.)
     """
 
@@ -169,7 +169,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.float32)
         if self.training:
-            if _group_size() > 1:
+            if _in_group():
                 mean, mean_sq = _global_moments(x)
             else:
                 mean, mean_sq = x.mean(dim=(0, 2, 3)), (x * x).mean(

@@ -6,8 +6,13 @@ process group: NCCL between CUDA devices, gloo on the CPU.  Each process
 streams its own contiguous slice of the records (:func:`local_slice`, the
 same arithmetic as the native loader's ``process_id/process_count``
 subrange), the model is wrapped by ``parallel/mesh.wrap_data_parallel``,
-whose backward averages the gradients, and ``models/layers.BatchNorm``
-takes its statistics over the global batch.
+whose backward averages the gradients, ``models/layers.BatchNorm``
+takes its statistics over the global batch, and each step's loss is the
+mean over the ranks (:func:`global_mean`), the global batch's, as JAX
+logs it.  The steps run as CUDA graphs under several processes too
+(``train/state.make_train_steps``): NCCL's collectives are captured with
+them, which wants NCCL's asynchronous error handling off from the start
+(:func:`prepare_nccl_for_graphs`).
 
 Two JAX pieces have no counterpart.  ``stage_global`` assembles the
 processes' batches into one global ``jax.Array``; here there is no global
@@ -70,6 +75,7 @@ def initialize(coordinator: str | None = None,
     if device.type == 'cuda':
         local = int(env.get('LOCAL_RANK', rank % torch.cuda.device_count()))
         torch.cuda.set_device(local)
+        prepare_nccl_for_graphs()
     dist.init_process_group(
         'nccl' if device.type == 'cuda' else 'gloo',
         init_method=f'tcp://{coordinator}', world_size=n, rank=rank)
@@ -77,6 +83,29 @@ def initialize(coordinator: str | None = None,
     # still connecting
     dist.barrier()
     return True
+
+
+def prepare_nccl_for_graphs() -> None:
+    """NCCL's asynchronous error handling off for the groups made after
+    this call: PyTorch captures a collective into a CUDA graph only
+    without it (its CUDA graphs notes, "Usage with
+    DistributedDataParallel").  A group reads the setting when it is
+    made, so this comes before ``init_process_group``."""
+    os.environ['TORCH_NCCL_ASYNC_ERROR_HANDLING'] = '0'
+
+
+def global_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` over the ranks of the group (``x`` itself without
+    one): a sum by one ``all_reduce`` of a copy, then a division by the
+    group's size, so a one-rank group gives ``x``'s bits.  A step's loss
+    through it is the global batch's loss when every rank's batch has the
+    same size (the mean of equal-sized means).  It draws nothing and reads
+    nothing back: a captured step holds the collective."""
+    if not dist.is_initialized():
+        return x
+    out = x.detach().clone()
+    dist.all_reduce(out)
+    return out.div_(dist.get_world_size())
 
 
 def rank() -> int:

@@ -8,12 +8,15 @@ weighted HeatmapWing loss (loss.py:116-129); the detector's cosine decay
 (:func:`cosine_schedule`).  Several processes train one model through
 ``TrainState.train_model``, the ``DistributedDataParallel`` wrapper of
 ``parallel/mesh.wrap_data_parallel``, whose backward averages the
-gradients over the processes.  :func:`make_train_steps` is the JAX
-package's jitted steps: ``n_inner`` steps of batch making, forward,
-backward and Adam as one CUDA graph on the card, one replay per call;
-:func:`make_scan_step` is ``make_sharded_scan_step`` on it.  The JAX
-mesh's sharded steps have no other counterpart: one process holds one
-card.
+gradients over the processes; each step's loss is the mean over them
+(``parallel/distributed.global_mean``), the global batch's, as the JAX
+package logs it.  :func:`make_train_steps` is the JAX package's jitted
+steps: ``n_inner`` steps of batch making, forward, backward and Adam as
+one CUDA graph on the card, one replay per call, for one process or
+several; :func:`make_scan_step` is ``make_sharded_scan_step`` on it.
+Under several processes the graph holds DDP's gradient all-reduces, the
+BatchNorm statistics' all-reduces and the loss's: the JAX mesh's sharded
+steps, one process per card.
 """
 
 from __future__ import annotations
@@ -25,7 +28,9 @@ import math
 
 import torch
 from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 
+from esa_pose_estimation_tpu_torch.parallel.distributed import global_mean
 from esa_pose_estimation_tpu_torch.train.loss import weighted_heatmap_loss
 from esa_pose_estimation_tpu_torch.utils import graphs
 from esa_pose_estimation_tpu_torch.utils.config import TrainConfig
@@ -144,8 +149,9 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor],
     statistics; the BatchNorm running statistics update), the loss, its
     gradients, Adam at the schedule's rate for this step.  Returns the
     loss and the gradients' global norm as device tensors: no host sync.
-    Under several processes the loss is this process's and the norm is
-    that of the gradients averaged over the processes."""
+    Under several processes the loss is the mean over the processes (the
+    global batch's) and the norm is that of the gradients averaged over
+    them."""
     return optimize(state, lambda model: heatmap_step_loss(model, batch,
                                                             loss_w))
 
@@ -157,8 +163,8 @@ def optimize(state: TrainState,
     forward and its scalar loss: the backward (``DistributedDataParallel``
     averages the gradients over the processes inside it), the gradients'
     global norm, the update at the schedule's rate for this step.  Returns
-    the loss and the norm as device tensors.  It runs under
-    :func:`deterministic_cudnn`."""
+    the loss, as the mean over the processes (``global_mean``), and the
+    norm as device tensors.  It runs under :func:`deterministic_cudnn`."""
     model, opt = state.train_model, state.optimizer
     model.train()
     with deterministic_cudnn():
@@ -172,7 +178,8 @@ def optimize(state: TrainState,
         group['lr'] = lr
     opt.step()
     state.step += 1
-    return {'loss': loss.detach(), 'grad_norm': grad_norm.detach()}
+    return {'loss': global_mean(loss.detach()),
+            'grad_norm': grad_norm.detach()}
 
 
 class BatchFn(NamedTuple):
@@ -197,8 +204,8 @@ StepLoss = Callable[[nn.Module, object], torch.Tensor]
 def run_steps(state: TrainState, loss_fn: StepLoss, inputs: list
               ) -> torch.Tensor:
     """The steps of :func:`make_train_steps` run eagerly, one
-    :func:`optimize` each: its CPU path, and the path of several
-    processes.  Returns the losses (len(inputs),)."""
+    :func:`optimize` each: its CPU path.  Returns the losses
+    (len(inputs),)."""
     return torch.stack([optimize(state, lambda m, x=x: loss_fn(m, x))['loss']
                         for x in inputs])
 
@@ -226,23 +233,42 @@ def _optimizer_tensors(opt: torch.optim.Optimizer) -> list[torch.Tensor]:
     return out
 
 
+def state_tensors(state: TrainState) -> list[torch.Tensor]:
+    """A train state's parameters, buffers and optimizer state."""
+    return (list(state.model.parameters()) + list(state.model.buffers())
+            + _optimizer_tensors(state.optimizer))
+
+
+DDP_WARM_UP_STEPS = 11
+
+
+def warm_up_steps(state: TrainState) -> int:
+    """The eager steps before a capture: 1, or under
+    ``DistributedDataParallel`` 11, PyTorch's rule for capturing DDP's
+    whole backward (its first iterations read timings back to the host and
+    rebuild the gradient buckets).  Every rank runs the same count: the
+    steps' collectives pair up across the ranks."""
+    return (DDP_WARM_UP_STEPS
+            if isinstance(state.train_model, DistributedDataParallel) else 1)
+
+
 def _warm_up_restored(state: TrainState, fn: Callable[[], object],
-                      device) -> None:
-    """``fn()`` once on a side stream (Adam's moments, the gradients,
-    cuBLAS and cuDNN are set up there, not in the capture), then the
-    model and the optimizer put back as they were.  State that the call
-    created is Adam's, which starts at zero."""
-    def tensors():
-        return (list(state.model.parameters()) + list(state.model.buffers())
-                + _optimizer_tensors(state.optimizer))
-    saved = {id(t): t.detach().clone() for t in tensors()}
-    graphs.warm_up(fn, device)
+                      device, steps: int = 1) -> None:
+    """``fn()`` ``steps`` times on a side stream (Adam's moments, the
+    gradients, cuBLAS and cuDNN, DDP's buckets and NCCL's communicator are
+    set up there, not in the capture), then the model, the optimizer and
+    the step count put back as they were, bit for bit.  State that the
+    calls created is Adam's, which starts at zero."""
+    saved = {id(t): t.detach().clone() for t in state_tensors(state)}
+    step = state.step
+    graphs.warm_up(lambda: [fn() for _ in range(steps)], device)
     with torch.no_grad():
-        for t in tensors():
+        for t in state_tensors(state):
             if id(t) in saved:
                 t.copy_(saved[id(t)])
             else:
                 t.zero_()
+    state.step = step
 
 
 def make_train_steps(state: TrainState, loss_fn: StepLoss, n_inner: int = 1
@@ -258,27 +284,32 @@ def make_train_steps(state: TrainState, loss_fn: StepLoss, n_inner: int = 1
     ``loss_fn(model, inputs[j])`` makes the batch from them with no
     randomness, runs the train-mode forward and returns the loss.  On the
     card a CUDA graph holds ``n_inner`` x (``loss_fn`` -> backward ->
-    Adam), captured at the first call after one warm-up step whose effects
-    are undone, and replayed by every call with the inputs copied into its
-    static buffers; the schedule's rate of each step is written into a
-    device tensor first.  Adam runs ``capturable`` with a tensor rate
-    (:func:`_capturable`; the checkpoints store the plain form); the
-    gradients' norm is not computed.  The warm-up and the capture run
+    Adam), captured at the first call after :func:`warm_up_steps` eager
+    steps whose effects are undone, and replayed by every call with the
+    inputs copied into its static buffers; the schedule's rate of each
+    step is written into a device tensor first.  Under
+    ``DistributedDataParallel`` (``state.train_model``, made by
+    ``parallel/mesh.wrap_data_parallel`` in a group that
+    ``parallel/distributed.initialize`` joined) the graph holds each
+    step's collectives: DDP's bucket all-reduces, the global-batch
+    BatchNorm's all-reduces forward and backward, the loss's mean over the
+    ranks; every rank captures the same graphs in the same order, and
+    replays them together.  A capture that fails raises.  Adam runs
+    ``capturable`` with a tensor rate (:func:`_capturable`; the
+    checkpoints store the plain form); the gradients' norm is not
+    computed.  The warm-up and the capture run
     under :func:`deterministic_cudnn`.  Every call must give the inputs of
     the first in shape and dtype.  The graph reads the model, its
     gradients and the optimizer where they lie, and each replay checks
-    that they were not replaced (``utils/graphs.check_pointers``).  It is
-    not captured under ``DistributedDataParallel``.  On the CPU the same
-    steps run eagerly (:func:`run_steps`).
+    that they were not replaced (``utils/graphs.check_pointers``).  The
+    losses are the means over the ranks.  On the CPU the same steps run
+    eagerly (:func:`run_steps`).
     """
     if n_inner < 1:
         raise ValueError(f'make_train_steps: n_inner={n_inner} < 1')
     device = next(state.model.parameters()).device
     if device.type != 'cuda':
         return lambda inputs: run_steps(state, loss_fn, inputs)
-    if state.train_model is not state.model:
-        raise NotImplementedError('make_train_steps: the graph is not '
-                                  'captured under DistributedDataParallel')
     return StepGraph(state, loss_fn, n_inner, device)
 
 
@@ -296,18 +327,19 @@ class StepGraph:
         self.inputs: list = []
         self.key: tuple = ()
         self.capture: graphs.Captured | None = None
+        self.warmed = False
 
     def _step(self, j: int) -> torch.Tensor:
         """One step as the graph holds it: the gradients stay allocated
         (zeroed, not dropped) and Adam reads its rate from the tensor in
-        its groups.  Returns the loss."""
+        its groups.  Returns the loss, the mean over the ranks."""
         model, opt = self.state.train_model, self.state.optimizer
         self.lr.copy_(self.lrs[j])
         loss = self.loss_fn(model, self.inputs[j])
         opt.zero_grad(set_to_none=False)
         loss.backward()
         opt.step()
-        return loss.detach()
+        return global_mean(loss.detach())
 
     def _rates(self) -> None:
         st = self.state
@@ -318,10 +350,19 @@ class StepGraph:
     def run_eagerly(self, inputs: list) -> torch.Tensor:
         """The steps of a replay launched one by one, with no graph: the
         same kernels and Adam's capturable arithmetic, which a replay is
-        held to bit for bit.  For a state that has no graph."""
+        held to bit for bit.  For a state that has no graph.  Its first
+        call warms up as the capture does (:func:`warm_up_steps` steps,
+        undone): DDP all-reduces its first iteration's gradients in
+        buckets of the parameters' order and later ones in buckets of the
+        order the gradients came in, and a sum over four cards depends on
+        where each element lies in its bucket."""
         self._rates()
         self.inputs = inputs
         with deterministic_cudnn():
+            if not self.warmed:
+                _warm_up_restored(self.state, lambda: self._step(0),
+                                  self.device, warm_up_steps(self.state))
+                self.warmed = True
             losses = torch.stack([self._step(j)
                                   for j in range(self.n_inner)])
         self.inputs = []
@@ -342,7 +383,9 @@ class StepGraph:
             model_reads = graphs.tensor_reader([st.model], grads=True)
             opt = st.optimizer
             with torch.cuda.device(self.device), deterministic_cudnn():
-                _warm_up_restored(st, lambda: self._step(0), self.device)
+                _warm_up_restored(st, lambda: self._step(0), self.device,
+                                  warm_up_steps(st))
+                self.warmed = True
                 self.capture = graphs.capture(
                     lambda: torch.stack([self._step(j) for j in range(n)]),
                     self.device,

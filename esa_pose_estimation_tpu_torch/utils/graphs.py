@@ -243,7 +243,11 @@ def replay(cap: Captured) -> None:
 
 
 def warm_up(fn: Callable[[], object], device: torch.device) -> None:
-    """One call of ``fn()`` on a side stream, as a capture wants it."""
+    """One call of ``fn()`` on a side stream, as a capture wants it (on
+    the CPU, which has no streams, the call alone)."""
+    if torch.device(device).type != 'cuda':
+        fn()
+        return
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):

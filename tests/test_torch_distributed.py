@@ -1,17 +1,23 @@
 """Several processes in the port (``parallel/distributed.py``,
-``parallel/mesh.wrap_data_parallel`` and the global-batch statistics of
-``models/layers.BatchNorm``), on the CPU with gloo.
+``parallel/mesh.wrap_data_parallel``, the global-batch statistics of
+``models/layers.BatchNorm`` and the global-batch loss of
+``distributed.global_mean``), on the CPU with gloo.
 
 Two processes of batch 4 are held to one process of the same batch of 8,
-three Adam steps of ``hrnet_tiny`` in f32: the mean of the two processes'
-losses and each process's gradient norm within relative 1e-6 of the one
-process's at the first step, 1e-5 at the later ones; every running
-statistic within 1e-6 after the first step, 1e-5 after the third; the
-parameters within 2 lr after the first step and steps x lr after the
-third; the two replicas bit-equal.  Adam's m/sqrt(v) saturates at +-1
-near zero gradients (ROADMAP section 3): a gradient element summed to
+three Adam steps of ``hrnet_tiny`` in f32: each process's loss (the mean
+over the processes, which every process logs) and gradient norm within
+relative 1e-6 of the one process's at the first step, 1e-5 at the later
+ones; every running statistic within 1e-6 after the first step, 1e-5
+after the third; the parameters within 2 lr after the first step and
+steps x lr after the third; the two replicas bit-equal after every step,
+though the processes start from different seeds (rank 0's parameters
+are broadcast when the model is wrapped).  Adam's m/sqrt(v) saturates at
++-1 near zero gradients (ROADMAP section 3): a gradient element summed to
 another sign moves its parameter up to 2 lr from the one process's, and
-the later steps start from those parameters.  The processes start
+the later steps start from those parameters.  Each process also runs the
+same steps from the same start through ``train/state.make_train_steps``
+(the compiled program's route; on the CPU its steps run eagerly): its
+losses and state ``torch.equal`` to ``train_step``'s.  The processes start
 from the command line, so each is a fresh interpreter as under a launcher.
 """
 
@@ -34,8 +40,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR = 1e-3
 STEPS = 3
 
-# One process's part: build hrnet_tiny from a seed, take samples
-# [lo, hi) of the saved batch, three train steps, save what came out.
+# One process's part: build hrnet_tiny from its rank's seed, take samples
+# [lo, hi) of the saved batch, three train steps by train_step and three
+# through make_train_steps from the same start, save what came out.
 WORKER = textwrap.dedent('''
     import sys
     import numpy as np
@@ -53,16 +60,22 @@ WORKER = textwrap.dedent('''
         torch.distributed.init_process_group(
             'gloo', init_method=f'file://{root}/rendezvous',
             world_size=world, rank=rank)
-    model = HRNet(config.hrnet_tiny()).init_weights(
-        torch.Generator().manual_seed(0))
-    st = tstate.create_train_state(
-        model, config.TrainConfig(lr_values=(1e-3, 1e-4, 1e-5, 1e-6)), 100)
-    if world > 1:
-        st.train_model = wrap_data_parallel(model)
+
+    def replica():
+        # each rank from its own seed: the wrapper broadcasts rank 0's
+        model = HRNet(config.hrnet_tiny()).init_weights(
+            torch.Generator().manual_seed(rank))
+        st = tstate.create_train_state(
+            model, config.TrainConfig(lr_values=(1e-3, 1e-4, 1e-5, 1e-6)),
+            100)
+        if world > 1:
+            st.train_model = wrap_data_parallel(model)
+        return model, st
     data = np.load(f'{root}/batch.npz')
     n = data['image'].shape[0] // world
     batch = {k: torch.from_numpy(data[k][rank * n:(rank + 1) * n])
              for k in ('image', 'heatmaps', 'weights')}
+    model, st = replica()
     out = {'loss': [], 'grad_norm': []}
     for step in range(%d):
         m = tstate.train_step(st, batch)
@@ -70,11 +83,15 @@ WORKER = textwrap.dedent('''
         out['grad_norm'].append(float(m['grad_norm']))
         if step == 0:
             first = {k: v.clone() for k, v in model.state_dict().items()}
+    program, st = replica()
+    steps = tstate.make_train_steps(st, tstate.heatmap_step_loss)
+    out['program_loss'] = [float(steps([batch])[0]) for _ in range(%d)]
     out['group'] = dist.world_size()
-    torch.save({'metrics': out, 'first': first, 'state': model.state_dict()},
+    torch.save({'metrics': out, 'first': first, 'state': model.state_dict(),
+                'program': program.state_dict()},
                f'{root}/out{world}_{rank}.pt')
     dist.shutdown()
-''' % STEPS)
+''' % (STEPS, STEPS))
 
 
 def _env():
@@ -122,8 +139,39 @@ def test_without_a_group_one_process(monkeypatch):
         0, 1, True)
     assert tdist.global_batch_size(8) == 8
     assert tdist.local_slice(list(range(5))) == list(range(5))
+    x = torch.tensor([1.5, -2.0])
+    assert tdist.global_mean(x) is x
     tdist.barrier()
     tdist.shutdown()
+
+
+@pytest.fixture
+def one_thread():
+    """Small CPU steps on one thread: beside the suite's other workers,
+    more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_ddp_mode_rehearses_alone_on_the_cpu(tmp_path, one_thread):
+    """``cli.mfu_experiments --ddp --device cpu --tiny`` in one process
+    (no group: the mode's one-card reference): each program, the scan and
+    the shard route's step, and the scan's second graph end bit-equal to
+    their eager twins from the same start, with finite losses; the mode
+    removes its shard after."""
+    from esa_pose_estimation_tpu_torch.cli import mfu_experiments
+    root = tmp_path / 'ddp'
+    res = mfu_experiments.main(['--ddp', '--device', 'cpu', '--tiny',
+                                '--workdir', str(root)])
+    assert (res['processes'], res['device']) == (1, 'cpu')
+    for key in ('scan_b2', 'shard_b2'):
+        row = res[key]
+        assert row['all_equal'] and row['finite'], row
+        assert row['ranks'] == [[1, 1, 1, 1, 1]]
+    assert res['scan_b2']['steps_per_graph'] == 4
+    assert not root.exists()
 
 
 def test_two_gloo_processes_match_one_process(tmp_path):
@@ -144,14 +192,18 @@ def test_two_gloo_processes_match_one_process(tmp_path):
            for r in range(2)]
     assert one['metrics']['group'] == 1
     assert two[0]['metrics']['group'] == two[1]['metrics']['group'] == 2
-    for k, v in two[0]['state'].items():       # the replicas agree
-        assert torch.equal(v, two[1]['state'][k]), k
-    loss = np.mean([t['metrics']['loss'] for t in two], axis=0)
+    for t in [one] + two:        # the program's route is train_step's
+        assert t['metrics']['program_loss'] == t['metrics']['loss']
+        for k, v in t['state'].items():
+            assert torch.equal(v, t['program'][k]), k
+    for when in ('first', 'state', 'program'):       # the replicas agree
+        for k, v in two[0][when].items():
+            assert torch.equal(v, two[1][when][k]), (when, k)
     rtol = [1e-6] + [1e-5] * (STEPS - 1)
     for step in range(STEPS):
-        assert loss[step] == pytest.approx(one['metrics']['loss'][step],
-                                           rel=rtol[step]), step
-        for t in two:
+        for t in two:        # each process logs the global batch's loss
+            assert t['metrics']['loss'][step] == pytest.approx(
+                one['metrics']['loss'][step], rel=rtol[step]), step
             assert t['metrics']['grad_norm'][step] == pytest.approx(
                 one['metrics']['grad_norm'][step], rel=rtol[step]), step
     for when, stat_tol, param_tol in (('first', 1e-6, 2 * LR),
@@ -175,9 +227,11 @@ def _free_port() -> int:
 
 
 def test_only_the_primary_writes_the_run(tmp_path):
-    """cli.train from a shard in two gloo processes: the primary's logs
-    and checkpoints are the workdir's, the secondary's go to proc1/, each
-    process streams its half of the records, and the replicas end equal."""
+    """cli.train from a shard in two gloo processes: the steps go through
+    ``make_train_steps`` (no eager route is named), the primary's logs and
+    checkpoints are the workdir's, the secondary's go to proc1/, each
+    process streams its half of the records, both log the same epoch loss
+    (the global batch's), and the replicas end equal."""
     shard = str(tmp_path / 'train.spd')
     shards.write_synthetic_shard(shard, 16, height=240, width=384, n_kp=6,
                                  batch=8, device='cpu')
@@ -191,6 +245,9 @@ def test_only_the_primary_writes_the_run(tmp_path):
     outs = _run_all([cmd + ['0'], cmd + ['1']])
     for out in outs:
         assert out.count('esa [1, ') == 2, out[-2000:]   # 16 / 8 steps
+        assert ('training program: train/state.make_train_steps, steps on '
+                'the CPU per call, 2 process(es)') in out, out[-2000:]
+        assert not [ln for ln in out.splitlines() if 'eager' in ln]
     # each process draws its eval's panels into its own directory
     top = {p.name for p in wd.iterdir()}
     assert top == {'events.jsonl', 'log_esa.txt', 'net_esa', 'panels',
@@ -201,6 +258,10 @@ def test_only_the_primary_writes_the_run(tmp_path):
     b = torch.load(wd / 'proc1' / 'net_esa' / 'last',
                    weights_only=True)['model']
     assert all(torch.equal(a[k], b[k]) for k in a)
+    rows = [(wd / d / 'log_esa.txt').read_text().splitlines()
+            for d in ('.', 'proc1')]
+    assert rows[0][0].split('\t') == ['Epoch', 'LR', 'Train Loss']
+    assert len(rows[0]) == 2 and rows[0] == rows[1], rows
     with open(wd / 'events.jsonl') as f:
         events = [json.loads(line)['event'] for line in f]
     assert 'eval' in events

@@ -369,6 +369,46 @@ def test_make_train_steps_checks_its_inputs():
     assert not isinstance(cpu, tstate.StepGraph)
 
 
+@pytest.fixture
+def one_thread():
+    """Small CPU steps on one thread: beside the suite's other workers,
+    more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize('steps', [1, tstate.DDP_WARM_UP_STEPS])
+@pytest.mark.parametrize('trained', [False, True])
+def test_warm_up_puts_the_state_back(steps, trained, one_thread):
+    """The eager steps before a capture (``_warm_up_restored``, k of them:
+    1, or 11 under DistributedDataParallel) leave the parameters, the
+    statistics, Adam's state and the step count bit for bit as they were,
+    so the next step is the one of a state that never warmed up, with
+    Adam's state made by the warm-up (zero) or there before it."""
+    a, b = _tiny_state(), _tiny_state()
+    batch = _tiny_batch()
+    if trained:
+        for st in (a, b):
+            tstate.train_step(st, batch)
+    before = [t.clone() for t in tstate.state_tensors(a)]
+    tstate._warm_up_restored(
+        a, lambda: tstate.optimize(a, lambda m: tstate.heatmap_step_loss(
+            m, batch)), torch.device('cpu'), steps)
+    now = tstate.state_tensors(a)
+    assert len(now) == len(before) + (0 if trained else 3 * len(
+        list(a.model.parameters())))
+    assert all(torch.equal(x, y) for x, y in zip(now, before))
+    assert a.step == b.step == int(trained)
+    assert tstate.warm_up_steps(a) == 1
+    assert torch.equal(tstate.train_step(a, batch)['loss'],
+                       tstate.train_step(b, batch)['loss'])
+    _states_equal(a, b)
+    assert all(torch.equal(x, y) for x, y in zip(tstate.state_tensors(a),
+                                                 tstate.state_tensors(b)))
+
+
 # --- against JAX's jitted steps ----------------------------------------------
 
 def _assert_params_close(port_sd, jax_state, n_steps):
