@@ -167,6 +167,20 @@ ground truth, and times the path.  Phases:
                  turns, capture seconds, pool bytes, peak memory; (d)
                  cli.train --train-pkl through its graph, K1 launches in
                  its in-train eval
+ 22. sharded     serving and the eval step over the data axis of this
+                 process's cards (pipeline.make_sharded_pipeline,
+                 train/state.make_sharded_eval_step): a mesh of every
+                 visible card and, on a one-card machine, cuda:0 listed
+                 twice; phase 5's frames with K2 off and on: (a) each
+                 shard torch.equal to make_jitted_pipeline on its card,
+                 slice and uniforms, the gathered poses within 1e-3 rad
+                 and 1e-3 relative translation of one unsharded call, K1
+                 (and K2) once per shard by the counters and the
+                 profiler's devices, no host wait inside a call, the
+                 frames' host-to-device ms from pinned memory; (b) the
+                 sharded eval step: heatmaps torch.equal to eval_step per
+                 shard, the loss the same on every card and within 1e-6
+                 relative of eval_step's
 
 Kernel and plain times (``ms``, ``plain_ms``) are means of eager calls
 between CUDA events, host cost included, as in earlier PRs; K1 and K2 are
@@ -182,7 +196,8 @@ shard-fed in-train evaluate, in phase 16's LINEMOD evals, in phase 17's
 rehearsal (in-train evals and cli.evaluate) and in phase 19b's
 cli.train_linemod from built DBs; for K1 and K2 in phase 18's imported
 reference checkpoint and, by the profiler, in one replay of phase 20's
-serving graph; in phase 21d's cli.train --train-pkl; a replay adds what
+serving graph; in phase 21d's cli.train --train-pkl; for K1 and K2 in one
+call of phase 22's sharded pipeline; a replay adds what
 its capture recorded to the counts, ``utils/graphs.py``; error
 against its plain version, times, bound); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3020,21 +3035,15 @@ SCAN_STEPS = 8                       # 20f: steps in one graph
 # 20f: one bf16 rounding step, 2^-8: hrnet_esa computes in bf16, and a
 # last-bit difference of an f32 master can move a bf16 operand by this much
 BF16_REL = 2.0 ** -8
-POSE_FIELDS = ('quat', 'trans', 'R', 'keypoints_2d', 'confidences',
-               'selected', 'heatmaps', 'rates', 'origins')
 
 
 def _unequal(a, b) -> list[str]:
     """The fields of two PoseOutputs that are not torch.equal, each with
     its largest difference."""
-    out = []
-    for name in POSE_FIELDS:
-        x, y = getattr(a, name), getattr(b, name)
-        if not torch.equal(x, y):
-            d = (x.float() - y.float()).abs()
-            out.append(f'{name} max {float(d.max()):.3g} at '
-                       f'{d.flatten().argmax().item()}')
-    return out
+    from esa_pose_estimation_tpu_torch.cli.mfu_experiments import (
+        pose_differences,
+    )
+    return pose_differences(a, b)
 
 
 def replay_kernels(call) -> tuple[int, int, int]:
@@ -3709,6 +3718,114 @@ def phase_step_graphs(s, pts) -> int:
     return launches
 
 
+def sharded_eval(model, pts, mesh) -> None:
+    """22b: train/state.make_sharded_eval_step on a batch of 32 crops with
+    targets: each shard's heatmaps torch.equal to eval_step on that card
+    and slice; every card's loss the same and within 1e-6 relative of
+    eval_step's loss on those heatmaps (weighted_heatmap_loss of the
+    shards' eval_step outputs, joined), and within 1e-4 of eval_step on
+    the whole batch, whose bf16 network runs at twice a shard's batch
+    (cuDNN may pick other algorithms: 1.8e-6 apart on an H100)."""
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.parallel import mesh as mesh_mod
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+    from esa_pose_estimation_tpu_torch.train.loss import (
+        weighted_heatmap_loss,
+    )
+    b = synthetic.make_batch(torch.Generator(device=DEVICE).manual_seed(
+        SEED + 60), 32, pts)
+    batch = {k: b[k] for k in ('image', 'heatmaps', 'weights')}
+    replicas = mesh_mod.replicate(model, mesh)
+    step = tstate.make_sharded_eval_step(mesh)
+    step(replicas, batch)                              # capture
+    heatmaps, losses = step(replicas, batch)
+    for dev in dict.fromkeys(mesh.devices):
+        torch.cuda.synchronize(dev)
+    outs = []
+    for k, (sl, dev) in enumerate(zip(mesh_mod.batch_sharding(mesh, 32),
+                                      mesh.devices)):
+        want, _ = tstate.eval_step(tstate.TrainState(replicas[k]),
+                                   {n: v[sl].to(dev) for n, v in
+                                    batch.items()})
+        if not torch.equal(heatmaps.shards[k], want):
+            raise AssertionError(f'22b: shard {k} heatmaps differ from '
+                                 'eval_step')
+        outs.append(want.to(DEVICE))
+    joined = float(weighted_heatmap_loss(torch.cat(outs), batch['heatmaps'],
+                                         batch['weights']))
+    _, whole = tstate.eval_step(tstate.TrainState(model), batch)
+    rel = max(abs(float(v) - joined) / abs(joined) for v in losses)
+    rel_whole = max(abs(float(v) - float(whole)) / abs(float(whole))
+                    for v in losses)
+    same = all(torch.equal(v.to(losses[0].device), losses[0])
+               for v in losses)
+    log(f'sharded 22b eval step over {len(mesh.devices)} shards: heatmaps '
+        f'torch.equal to eval_step per shard; loss {float(losses[0]):.8f} '
+        f'on every card {same}, {rel:.3g} relative from eval_step\'s on '
+        f'the same heatmaps (limit 1e-6), {rel_whole:.3g} from eval_step '
+        f'on the whole batch, {float(whole):.8f} (limit 1e-4)')
+    if not same or rel > 1e-6 or rel_whole > 1e-4:
+        raise AssertionError(f'22b: losses {losses} against {joined} and '
+                             f'{whole}')
+
+
+def phase_sharded(model, pts, s) -> tuple[int, int]:
+    """22: serving and the eval step over the data axis of one process's
+    cards (every visible card; on a one-card machine also cuda:0 listed
+    twice), hrnet_esa from r5 in bf16 on phase 5's 64 frames, K2 off and
+    on: each shard torch.equal to its card's make_jitted_pipeline on that
+    slice and those uniforms, the gathered poses within 1e-3 rad and 1e-3
+    relative translation of one unsharded call, K1 (and K2) once per
+    shard by the counters and by the profiler's devices, no host wait
+    inside a call; host-to-device ms of the frames from pinned memory;
+    22b the sharded eval step.  Returns K1's and K2's launches in one
+    FUSED_CBAM call on the last mesh."""
+    from esa_pose_estimation_tpu_torch.cli import mfu_experiments as mfu
+    from esa_pose_estimation_tpu_torch.models import layers
+    from esa_pose_estimation_tpu_torch.parallel import mesh as mesh_mod
+    t0 = time.perf_counter()
+    meshes = [mesh_mod.make_mesh()]
+    if torch.cuda.device_count() == 1:
+        meshes.append(mesh_mod.make_mesh(devices=[DEVICE] * 2))
+    launches = (0, 0)
+    for mesh in meshes:
+        for fused in (False, True):
+            layers.FUSED_CBAM = fused
+            try:
+                rec = mfu.sharded_serving_check(model, pts, mesh, s.image,
+                                                s.bbox, SEED + 3,
+                                                pose_tol=1e-3)
+                gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+                check_no_host_wait(
+                    f'sharded {len(mesh.devices)} FUSED_CBAM={fused}',
+                    lambda: rec['sharded'](s.image, s.bbox, gen))
+            finally:
+                layers.FUSED_CBAM = False
+            launches = rec['launches']
+            log(f'sharded 22a {rec["devices"]} FUSED_CBAM={fused}: '
+                f'{rec["batch"]} frames, every shard torch.equal to its '
+                f'card\'s make_jitted_pipeline; bit-equal on cuda:0 too '
+                f'{rec["shards_equal_on_home_card"]}; gathered poses '
+                f'{rec["max_angle_vs_unsharded"]:.3g} rad, '
+                f'{rec["max_rel_t_vs_unsharded"]:.3g} relative from one '
+                f'unsharded call (limits 1e-3); launches (K1, K2) '
+                f'{rec["launches"]}, device kernels by card '
+                f'{rec["device_kernels"]}; first call (warm-up, capture, '
+                f'replay) {rec["first_call_s"]:.2f} s')
+            del rec
+        torch.cuda.empty_cache()
+    mesh = meshes[-1]
+    h2d = mfu.h2d_ms(s.image.cpu().pin_memory(), mesh)
+    log(f'sharded 22a host-to-device of the 64 frames from pinned memory '
+        f'over {mesh.devices}: {h2d["mbytes_per_card"]:.0f} MB a shard, '
+        f'{[round(v, 2) for v in h2d["card_ms"]]} ms by card, host '
+        f'{h2d["wall_ms"]:.2f} ms ({CARD})')
+    sharded_eval(model, pts, mesh)
+    torch.cuda.empty_cache()
+    log(f'sharded: phase {time.perf_counter() - t0:.1f} s')
+    return launches
+
+
 def main() -> None:
     global WORK
     WORK = tempfile.mkdtemp(prefix='chip_smoke_')
@@ -3756,6 +3873,8 @@ def run() -> None:
     (k1['launches_graph_replay'],
      k2['launches_graph_replay']) = phase_graphs(model, pts, frames)
     k1['launches_pickle_train_eval'] = phase_step_graphs(planted, pts)
+    (k1['launches_sharded_serving'],
+     k2['launches_sharded_serving']) = phase_sharded(model, pts, frames)
     log(f'total: {time.perf_counter() - t_start:.1f} s')
     # graph_ms / plain_graph_ms (K1 and K2): the same calls replayed from a
     # CUDA graph, beside ms / plain_ms by eager calls as in earlier PRs;
@@ -3775,7 +3894,9 @@ def run() -> None:
     # the DBs db_builder made; launches_graph_replay (K1 and K2): device
     # kernels in one replay of phase 20's FUSED_CBAM serving graph, by the
     # profiler; launches_pickle_train_eval (K1): in the in-train evaluate of
-    # phase 21d's cli.train --train-pkl (two batches of 32 frames)
+    # phase 21d's cli.train --train-pkl (two batches of 32 frames);
+    # launches_sharded_serving (K1 and K2): in one FUSED_CBAM call of phase
+    # 22's sharded pipeline over its last mesh (one per shard; 29 K2 each)
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
             'graph_ms', 'plain_graph_ms', 'launches_two_stage',
@@ -3783,7 +3904,8 @@ def run() -> None:
             'launches_shard_train_eval', 'launches_linemod_eval',
             'launches_rehearsal_train_eval', 'launches_rehearsal_evaluate',
             'launches_imported_checkpoint', 'launches_linemod_db_eval',
-            'launches_graph_replay', 'launches_pickle_train_eval')
+            'launches_graph_replay', 'launches_pickle_train_eval',
+            'launches_sharded_serving')
     print(json.dumps({'kernels': [{k: rec[k] for k in keys if k in rec}
                                   for rec in (k1, k2, k3)]}))
     print(json.dumps({'ok': True, 'device': {

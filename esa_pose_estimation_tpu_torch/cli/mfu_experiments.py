@@ -2,8 +2,8 @@
 
     python -m esa_pose_estimation_tpu_torch.cli.mfu_experiments [--chain |
         --int8 | --int8-matmul | --cluster-sweep | --repeat | --k2-case |
-        --determinism | --ddp [--coordinator host:port --num-processes N
-        --process-id i]]
+        --determinism | --sharded | --ddp [--coordinator host:port
+        --num-processes N --process-id i]]
 
 Port of the JAX package's ``scripts/mfu_experiments.py``.  Every mode times
 on the card with CUDA events and reports its share of the card's bf16
@@ -81,6 +81,21 @@ CUDA device.  Modes:
   --host-crop``: no eager step on the card, K1 in every rank's eval, the
   same finite epoch losses in every rank's log.  ``--device cpu --tiny``
   rehearses it under gloo.
+* ``--sharded``: serving over the ``data`` axis of every visible card of
+  one process (``pipeline.make_sharded_pipeline``).  First K1, K2 and K3
+  on each card with card 0 left current, each card's output bit-equal to
+  card 0's.  Then ``hrnet_esa`` from r5 in bf16 at 64 and at 1 frame a
+  card, K2 off and on: each card's shard ``torch.equal`` to
+  ``make_jitted_pipeline`` on that card with that slice and those
+  uniforms, and whether it is bit-equal served on card 0 too; how far
+  the gathered poses lie from one unsharded call on card 0 (reported:
+  its network runs at the whole batch, a shard's at a slice); K1 (and
+  K2) once per shard by the counters and by the profiler's kernels on
+  each card.  Phase 10's 128 held-out frames served sharded
+  (SPEED median <= 0.01); the host-to-device ms of 64 frames a card from
+  pageable and from pinned memory; replay ms per call and images/s on 1,
+  2 and all cards in turns (the batch starts on card 0, so a call
+  includes its copies to the other cards).
 * ``--k2-case``: two launches of the fused CBAM kernel on one input at
   batch 64, 64x64x32 with residual (R = 5 CTAs per image), the case in
   which two launches once differed (ROADMAP.md section 3, fault 2), and
@@ -1096,6 +1111,358 @@ def ddp_experiment(dev, root: str, tiny: bool = False,
     return results
 
 
+# --sharded: one serving batch over the data axis of this process's cards,
+# at cli.eval_synthetic's solver settings
+SHARDED_KW = dict(min_keypoints=0, n_hypotheses=64)
+SHARDED_PER_CARD = (64, 1)
+SHARDED_ITERS = 10
+K1_NAME, K2_NAME = 'peak_decode_kernel', 'cbam_cluster_kernel'
+
+
+def sync_all(mesh) -> None:
+    for dev in dict.fromkeys(mesh.devices):
+        torch.cuda.synchronize(dev)
+
+
+def pose_differences(a, b) -> list[str]:
+    """The fields of two PoseOutputs that are not torch.equal, each with
+    its largest difference and where it lies (``b`` moved to ``a``'s card
+    first)."""
+    out = []
+    for name, x, y in zip(a._fields, a, b):
+        y = y.to(x.device)
+        if not torch.equal(x, y):
+            d = (x.float() - y.float()).abs()
+            out.append(f'{name} max {float(d.max()):.3g} at '
+                       f'{d.flatten().argmax().item()}')
+    return out
+
+
+def device_kernels(call, mesh) -> dict[int, tuple[int, int]]:
+    """K1's and K2's device kernels of one ``call()`` on each card, by
+    torch.profiler: {card index: (K1, K2)}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sync_all(mesh)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        sync_all(mesh)
+    out: dict[int, list[int]] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n = out.setdefault(e.device_index, [0, 0])
+            n[0] += K1_NAME in e.name
+            n[1] += K2_NAME in e.name
+    return {k: tuple(v) for k, v in sorted(out.items())}
+
+
+def _angles(Ra: torch.Tensor, Rb: torch.Tensor) -> torch.Tensor:
+    """Rotation angle between two batches of rotation matrices, in f64
+    from their Frobenius distance, 2 sqrt(2) sin(angle / 2): exact near
+    0, where the trace's arccos of f32 matrices has a floor of ~1e-3
+    rad (it read 9.8e-4 for two equal rotations)."""
+    d = torch.linalg.matrix_norm(Ra.double() - Rb.double())
+    return 2.0 * torch.arcsin(torch.clamp(d / 8.0 ** 0.5, max=1.0))
+
+
+def sharded_serving_check(model, pts, mesh, frames, boxes, seed: int,
+                          pose_tol: float | None = None) -> dict:
+    """``pipeline.make_sharded_pipeline(model, pts, mesh)`` on one batch
+    (``frames``, ``boxes`` on ``model``'s card), FUSED_CBAM as it is set.
+    Raises unless: each shard is torch.equal to ``make_jitted_pipeline``
+    of a replica on that shard's card, run on that slice and that slice of
+    the global draw; one call launches K1 (and K2 29 times) once per
+    shard, by the counters and by the profiler's device kernels on each
+    card; with ``pose_tol``, the gathered poses lie within ``pose_tol``
+    rad and ``pose_tol`` relative translation of one unsharded call on
+    ``model``'s card.  That call's network runs at the whole batch, a
+    shard's at a slice, and the bf16 heatmaps can differ by a rounding
+    step with the batch (cuDNN's choice of algorithms): at 256 against 64
+    a frame moved 2.0e-3 rad on four H100s.  Also says whether each shard
+    is bit-equal to its slice served on ``model``'s card."""
+    from esa_pose_estimation_tpu_torch import pipeline
+    from esa_pose_estimation_tpu_torch.experimental.cbam_fuse import (
+        fused_cbam,
+    )
+    from esa_pose_estimation_tpu_torch.models import layers
+    from esa_pose_estimation_tpu_torch.ops import pnp
+    from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
+        peak_decode,
+    )
+    from esa_pose_estimation_tpu_torch.parallel import mesh as mesh_mod
+    home = frames.device
+    sharded = pipeline.make_sharded_pipeline(model, pts, mesh, **SHARDED_KW)
+
+    def gen():
+        return torch.Generator(device=mesh.devices[0]).manual_seed(seed)
+    t0 = time.perf_counter()
+    sharded(frames, boxes, gen())             # warm-up and capture
+    sync_all(mesh)
+    first_s = time.perf_counter() - t0
+    out = sharded(frames, boxes, gen())
+    sync_all(mesh)
+    uniforms = pnp.draw_ransac_uniforms(
+        gen(), frames.shape[:1], pts.shape[-2],
+        SHARDED_KW['n_hypotheses'], mesh.devices[0])
+    at_home = pipeline.make_jitted_pipeline(model, pts, **SHARDED_KW)
+    refs = {home: at_home}
+    on_home = []
+    for k, (sl, dev) in enumerate(zip(
+            mesh_mod.batch_sharding(mesh, frames.shape[0]), mesh.devices)):
+        if dev not in refs:
+            replica = mesh_mod.replicate(model, mesh_mod.Mesh((dev,)))[0]
+            refs[dev] = pipeline.make_jitted_pipeline(replica, pts.to(dev),
+                                                      **SHARDED_KW)
+        want = refs[dev](frames[sl].to(dev), boxes[sl].to(dev),
+                         ransac_uniforms=uniforms[sl].to(dev))
+        bad = pose_differences(out.shards[k], want)
+        if bad:
+            raise AssertionError(f'sharded serving: shard {k} on {dev} is '
+                                 f'not its card\'s make_jitted_pipeline: '
+                                 f'{bad}')
+        mine = at_home(frames[sl], boxes[sl],
+                       ransac_uniforms=uniforms[sl].to(home))
+        on_home.append(not pose_differences(mine, out.shards[k]))
+    sync_all(mesh)
+    whole = at_home(frames, boxes, gen())
+    got = out.gather(home)
+    angles = _angles(got.R, whole.R)
+    rels = ((got.trans - whole.trans).norm(dim=-1)
+            / whole.trans.norm(dim=-1))
+    ang, rel = float(angles.max()), float(rels.max())
+    if pose_tol is not None and not (ang <= pose_tol and rel <= pose_tol):
+        raise AssertionError(f'sharded serving: gathered poses {ang} rad, '
+                             f'{rel} relative from one unsharded call')
+    fused = layers.FUSED_CBAM
+    want_k = (len(mesh.devices), 29 * len(mesh.devices) if fused else 0)
+    peak_decode.launches = fused_cbam.launches = 0
+    sharded(frames, boxes, gen())
+    sync_all(mesh)
+    counted = (peak_decode.launches, fused_cbam.launches)
+    per_card = device_kernels(lambda: sharded(frames, boxes, gen()), mesh)
+    want_dev: dict[int, tuple[int, int]] = {}
+    for dev in mesh.devices:
+        k1, k2 = want_dev.get(dev.index, (0, 0))
+        want_dev[dev.index] = (k1 + 1, k2 + (29 if fused else 0))
+    if counted != want_k or per_card != want_dev:
+        raise AssertionError(f'sharded serving: launches {counted} (want '
+                             f'{want_k}), device kernels {per_card} (want '
+                             f'{want_dev})')
+    return {'shards': len(mesh.devices),
+            'devices': [str(d) for d in mesh.devices],
+            'batch': frames.shape[0], 'fused_cbam': fused,
+            'shards_equal_their_card': True,
+            'shards_equal_on_home_card': on_home,
+            'max_angle_vs_unsharded': ang, 'max_rel_t_vs_unsharded': rel,
+            'median_angle_vs_unsharded': float(angles.median()),
+            'frames_over_1e-3_vs_unsharded': int(
+                ((angles > 1e-3) | (rels > 1e-3)).sum()),
+            'launches': counted, 'device_kernels': per_card,
+            'first_call_s': first_s, 'sharded': sharded, 'out': out}
+
+
+def h2d_ms(frames: torch.Tensor, mesh) -> dict:
+    """Host-to-device copy of ``frames`` (on the host) sharded over the
+    mesh (``mesh.shard_batch``): each card's copy by events on its stream,
+    and the host's wall time until every copy is done."""
+    from esa_pose_estimation_tpu_torch.parallel import mesh as mesh_mod
+    cards = list(dict.fromkeys(mesh.devices))
+    sync_all(mesh)
+    ev = {d: (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for d in cards}
+    for d in cards:
+        ev[d][0].record(torch.cuda.current_stream(d))
+    t0 = time.perf_counter()
+    shards = mesh_mod.shard_batch(frames, mesh)
+    enqueue = time.perf_counter() - t0
+    for d in cards:
+        ev[d][1].record(torch.cuda.current_stream(d))
+    sync_all(mesh)
+    wall = time.perf_counter() - t0
+    del shards
+    return {'pinned': frames.is_pinned(),
+            'card_ms': [ev[d][0].elapsed_time(ev[d][1]) for d in cards],
+            'host_enqueue_ms': enqueue * 1e3, 'wall_ms': wall * 1e3,
+            'mbytes_per_card': frames.numel() * frames.element_size()
+            / len(mesh.devices) / 1e6}
+
+
+def sharded_rates(model, pts, n_cards: tuple[int, ...], per_card: int,
+                  seed: int) -> list[dict]:
+    """Replay ms per call and images/s (all cards') of make_sharded_pipeline
+    over the first n cards for each n in ``n_cards``, in turns (n_cards,
+    then reversed); the global batch (``per_card`` x n frames) starts on
+    card 0, so a call includes its peer copies to the other cards."""
+    from esa_pose_estimation_tpu_torch import pipeline
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.parallel import mesh as mesh_mod
+    dev0 = next(model.parameters()).device
+    g = torch.Generator(device=dev0).manual_seed(seed)
+    s = synthetic.make_sample(g, pts, per_card * max(n_cards))
+    runs = {}
+    for n in n_cards:
+        mesh = mesh_mod.make_mesh(devices=[torch.device('cuda', i)
+                                           for i in range(n)])
+        fn = pipeline.make_sharded_pipeline(model, pts, mesh, **SHARDED_KW)
+        b = per_card * n
+        fn(s.image[:b], s.bbox[:b], g)          # capture
+        runs[n] = (mesh, fn, b)
+    times: dict[int, list[float]] = {n: [] for n in n_cards}
+    for n in tuple(n_cards) + tuple(reversed(n_cards)):
+        mesh, fn, b = runs[n]
+        fn(s.image[:b], s.bbox[:b], g)
+        sync_all(mesh)
+        t0 = time.perf_counter()
+        for _ in range(SHARDED_ITERS):
+            fn(s.image[:b], s.bbox[:b], g)
+        sync_all(mesh)
+        times[n].append((time.perf_counter() - t0) / SHARDED_ITERS * 1e3)
+    return [{'cards': n, 'per_card': per_card, 'batch': runs[n][2],
+             'ms': times[n],
+             'images_per_s': [runs[n][2] / (t * 1e-3) for t in times[n]]}
+            for n in n_cards]
+
+
+def held_out_speed(model, pts, mesh) -> dict:
+    """Phase 10's 128 held-out frames (cli.eval_synthetic's generators,
+    4 batches of 32) served sharded as one batch: the SPEED median."""
+    import statistics
+
+    from esa_pose_estimation_tpu_torch import pipeline
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.eval.speed_score import (
+        speed_score_from_matrices,
+    )
+    dev0 = next(model.parameters()).device
+    samples = [synthetic.make_sample(torch.Generator(device=dev0).manual_seed(
+        991 * 100_003 + i), pts, 32) for i in range(4)]
+    cat = {k: torch.cat([getattr(x, k) for x in samples])
+           for k in ('image', 'bbox', 'quat', 'trans')}
+    fn = pipeline.make_sharded_pipeline(model, pts, mesh, **SHARDED_KW)
+    out = fn(cat['image'], cat['bbox'], torch.Generator(
+        device=dev0).manual_seed(991)).gather(dev0)
+    sc = speed_score_from_matrices(out.R, out.trans, cat['quat'],
+                                   cat['trans']).speed.cpu().tolist()
+    return {'frames': len(sc), 'median': statistics.median(sc),
+            'mean': statistics.fmean(sc), 'worst': max(sc)}
+
+
+def kernels_on_every_card() -> list[dict]:
+    """K1, K2 and K3 launched on each visible card from this process,
+    whose current device stays card 0 (the wrappers make the input's card
+    current; the ``.cu`` files keep their launch state per card): each
+    card's output must be bit-equal to card 0's on the same input.  K1 on
+    (64, 128, 128, 30) f32 maps, K2 on hrnet_esa's 64x64x32 site at batch
+    64 with residual, K3 (bf16) on (8, 64, 64, 32) with k = 4."""
+    from esa_pose_estimation_tpu_torch.experimental.branch_chain import (
+        branch_chain,
+        make_test_chain,
+    )
+    from esa_pose_estimation_tpu_torch.experimental.cbam_fuse import (
+        fused_cbam,
+    )
+    from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
+        peak_decode,
+    )
+    g = torch.Generator().manual_seed(SEED)
+    hm = torch.rand((64, 128, 128, 30), generator=g)
+    x2 = torch.randn((64, 64, 64, 32), generator=g).to(torch.bfloat16)
+    res = torch.randn((64, 64, 64, 32), generator=g).to(torch.bfloat16)
+    fc1, fc2 = (0.3 * torch.randn((32, 2), generator=g),
+                0.3 * torch.randn((2, 32), generator=g))
+    spw = 0.2 * torch.randn((7, 7, 2), generator=g)
+    x3 = torch.randn((8, 64, 64, 32), generator=g).to(torch.bfloat16)
+    w3, b3 = make_test_chain(g)
+    calls = {
+        'k1': lambda d: peak_decode(hm.to(d)),
+        'k2': lambda d: fused_cbam(x2.to(d), fc1.to(d), fc2.to(d),
+                                   spw.to(d), res.to(d)),
+        'k3': lambda d: branch_chain(x3.to(d), w3.to(d), b3.to(d)),
+    }
+    rows = []
+    for name, call in calls.items():
+        first = None
+        for i in range(torch.cuda.device_count()):
+            dev = torch.device('cuda', i)
+            out = call(dev)
+            out = tuple(out) if isinstance(out, tuple) else (out,)
+            torch.cuda.synchronize(dev)
+            if torch.cuda.current_device() != 0:
+                raise AssertionError(f'{name} left cuda:'
+                                     f'{torch.cuda.current_device()} current')
+            if first is None:
+                first = [t.cpu() for t in out]
+            equal = all(torch.equal(a.cpu(), b)
+                        for a, b in zip(out, first))
+            rows.append({'kernel': name, 'card': i, 'equal_to_card_0':
+                         equal})
+            if not equal:
+                raise AssertionError(f'{name} on cuda:{i} differs from '
+                                     'cuda:0')
+    return rows
+
+
+def sharded_experiment() -> dict:
+    """``--sharded``: hrnet_esa from r5 in bf16 (the serving form) over
+    every visible card of this process."""
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.models import layers
+    from esa_pose_estimation_tpu_torch.parallel import mesh as mesh_mod
+    from esa_pose_estimation_tpu_torch.utils.artifact import (
+        load_hrnet_artifact,
+    )
+    _require_cuda()
+    dev0 = torch.device('cuda', 0)
+    model = load_hrnet_artifact(str(R5_ARTIFACT), dtype=torch.bfloat16,
+                                device=dev0)
+    pts = synthetic.spacecraft_points(device=dev0)
+    mesh = mesh_mod.make_mesh()
+    n = len(mesh.devices)
+    results: dict = {'cards': n}
+
+    def emit(key, rec):
+        if isinstance(rec, dict):
+            rec = {k: v for k, v in rec.items()
+                   if k not in ('sharded', 'out')}
+        results[key] = rec
+        print(json.dumps({key: rec}), flush=True)
+    import subprocess
+    emit('nvidia_smi', subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines())
+    emit('kernels_on_every_card', kernels_on_every_card())
+    for per_card in SHARDED_PER_CARD:
+        s = synthetic.make_sample(torch.Generator(device=dev0).manual_seed(
+            SEED + per_card), pts, per_card * n)
+        for fused in (False, True):
+            layers.FUSED_CBAM = fused
+            try:
+                emit(f'check_{per_card}_a_card_k2_{int(fused)}',
+                     sharded_serving_check(model, pts, mesh, s.image, s.bbox,
+                                           SEED + 1))
+            finally:
+                layers.FUSED_CBAM = False
+            torch.cuda.empty_cache()
+    emit('held_out', held_out_speed(model, pts, mesh))
+    if not results['held_out']['median'] <= 0.01:
+        raise AssertionError(f'--sharded: held-out SPEED median '
+                             f'{results["held_out"]["median"]} > 0.01')
+    s = synthetic.make_sample(torch.Generator(device=dev0).manual_seed(
+        SEED + 7), pts, SHARDED_PER_CARD[0] * n, render=False)
+    host = s.image.cpu()
+    emit('h2d_pageable', h2d_ms(host, mesh))
+    emit('h2d_pinned', h2d_ms(host.pin_memory(), mesh))
+    del s, host
+    counts = tuple(sorted({c for c in (1, 2, n) if c <= n}))
+    for per_card in SHARDED_PER_CARD:
+        for rec in sharded_rates(model, pts, counts, per_card, SEED + 9):
+            emit(f'rate_{rec["cards"]}_cards_{per_card}_a_card', rec)
+    return results
+
+
+
 def ddp_main(args) -> dict:
     """``--ddp``: join the group the arguments name (none for one
     process), run :func:`ddp_experiment`, leave the group."""
@@ -1130,6 +1497,7 @@ def main(argv=None) -> dict:
     mode.add_argument('--k2-case', action='store_true')
     mode.add_argument('--determinism', action='store_true')
     mode.add_argument('--ddp', action='store_true')
+    mode.add_argument('--sharded', action='store_true')
     ddp = ap.add_argument_group('--ddp', 'several processes, one per card '
                                 '(none: one card alone)')
     ddp.add_argument('--coordinator', default=None)
@@ -1159,6 +1527,8 @@ def main(argv=None) -> dict:
         results = k2_case()
     elif args.determinism:
         results = determinism_experiment()
+    elif args.sharded:
+        results = sharded_experiment()
     else:
         results = flagship_experiment()
     results['device'] = torch.cuda.get_device_name(0)

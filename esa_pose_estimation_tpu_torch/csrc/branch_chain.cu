@@ -571,6 +571,34 @@ CUresult encode_x_map(CUtensorMap* map, const void* x, long long B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);  // zeros outside
 }
 
+constexpr int kErrDevice = -4;   // device index past kMaxDevices
+constexpr int kMaxDevices = 64;  // cards of one process with host state
+
+// Host state of one card, kept per device (the runtime's current device,
+// which the wrapper sets to the input's card): its SM count, read once,
+// and each kernel's shared-memory attribute, which applies to the current
+// device only, set once.
+struct DeviceState {
+  int n_sm;
+  bool f32_smem, tc_smem;
+};
+DeviceState g_devices[kMaxDevices];
+
+// The current device's state, its SM count read at first use.
+int device_state(DeviceState** out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices) return kErrDevice;
+  DeviceState* d = &g_devices[dev];
+  if (d->n_sm == 0) {
+    err = cudaDeviceGetAttribute(&d->n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  *out = d;
+  return 0;
+}
+
 // ping-pong so the last block writes `out`: block i reads src, writes dst
 template <typename T>
 T* block_dst(long long i, long long k, T* out, T* scratch) {
@@ -581,7 +609,7 @@ T* block_dst(long long i, long long k, T* out, T* scratch) {
 
 // x, out, scratch: (B, H, W, 32) contiguous f32; w: (k, 2, 3, 3, 32, 32) f32
 // HWIO; b: (k, 2, 32) f32.  scratch may be null when k == 1.  Returns
-// cudaGetLastError() of the launches (0 on success).
+// cudaGetLastError() of the launches (0 on success), or kErrDevice.
 extern "C" int branch_chain_f32_launch(const float* x, float* out,
                                        float* scratch, const float* w,
                                        const float* b, long long B,
@@ -592,10 +620,17 @@ extern "C" int branch_chain_f32_launch(const float* x, float* out,
   constexpr int kSH = plane_stride(kHT * kHT);
   const size_t smem = (9 * kC * kC + static_cast<size_t>(kC) * (kSX + kSH))
                       * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      residual_block_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  DeviceState* d = nullptr;
+  const int state_err = device_state(&d);
+  if (state_err != 0) return state_err;
+  cudaError_t err;
+  if (!d->f32_smem) {
+    err = cudaFuncSetAttribute(residual_block_f32,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    d->f32_smem = true;
+  }
   const long long tiles = ((H + kTile - 1) / kTile) * ((W + kTile - 1) / kTile);
   const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(B));
   const float* src = x;
@@ -615,8 +650,8 @@ extern "C" int branch_chain_f32_launch(const float* x, float* out,
 // wp: (k, 2, 9, 4, 32, 8) bf16, the weights packed by the wrapper
 // (pack_weights: wp[i, j, t, g, co, c] = w[i, j, t / 3, t % 3, 8 g + c, co]);
 // b: (k, 2, 32) f32.  scratch may be null when k == 1.  Returns
-// cudaGetLastError() of the launches (0 on success), or the CUresult of a
-// failed tensor-map encoding plus 10000.
+// cudaGetLastError() of the launches (0 on success), kErrDevice, or the
+// CUresult of a failed tensor-map encoding plus 10000.
 extern "C" int branch_chain_bf16_launch(const void* x, void* out,
                                         void* scratch, const void* wp,
                                         const float* b, long long B,
@@ -627,15 +662,18 @@ extern "C" int branch_chain_bf16_launch(const void* x, void* out,
                           * ((W + kTileW - 1) / kTileW);
   if (tiles > INT_MAX || H > INT_MAX || W > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
+  DeviceState* d = nullptr;
+  const int state_err = device_state(&d);
+  if (state_err != 0) return state_err;
+  cudaError_t err;
+  if (!d->tc_smem) {
     err = cudaFuncSetAttribute(residual_block_tc,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmemTc);
-  if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    d->tc_smem = true;
+  }
+  const int sms = d->n_sm;
   const unsigned grid =
       static_cast<unsigned>(tiles < sms ? tiles : static_cast<long long>(sms));
   const auto* wq = static_cast<const __nv_bfloat16*>(wp);

@@ -89,6 +89,8 @@ constexpr int kSiteRanks[5][4] = {
 constexpr int kErrShape = -1;     // C not a power of two in [8, 8 * kThreads]
 constexpr int kErrSmem = -2;      // the band does not fit a block's shared memory
 constexpr int kErrCluster = -3;   // no cluster of R such CTAs can be placed
+constexpr int kErrDevice = -4;    // device index past kMaxDevices
+constexpr int kMaxDevices = 64;   // cards of one process with host state
 
 // Shared-memory layout of one CTA, in bytes from the dynamic base.  One
 // region serves in turn the slot partials (step 2), every rank's gathered
@@ -474,19 +476,45 @@ int pick_ranks(long long B, long long H, long long W, long long C, int n_sm) {
   return r;
 }
 
-// Host state: the process drives one device.  Its attributes are read
-// once; the shared-memory attribute only grows; each (R, bytes)
-// configuration's cluster occupancy is asked once, before its first launch.
+// Host state of one card, kept per device (the runtime's current device,
+// which the wrapper sets to the maps' card): its attributes are read and
+// the kernel's cluster attribute set once; the shared-memory attribute,
+// which applies to the current device only, only grows; each (R, bytes)
+// configuration's cluster occupancy is asked once, before its first launch
+// there.
 struct Placed {
   int ranks;
   long long smem;
   int clusters;
 };
-Placed g_placed[32];
-int g_n_placed = 0;
-long long g_smem_attr = 0;
-int g_optin = 0;
-int g_n_sm = 0;
+struct DeviceState {
+  Placed placed[32];
+  int n_placed;
+  long long smem_attr;
+  int optin;
+  int n_sm;
+};
+DeviceState g_devices[kMaxDevices];
+
+// The current device's state, its attributes read at first use.
+int device_state(DeviceState** out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices) return kErrDevice;
+  DeviceState* d = &g_devices[dev];
+  if (d->n_sm == 0) {
+    err = cudaDeviceGetAttribute(&d->optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(cbam_cluster_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaDeviceGetAttribute(&d->n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  *out = d;
+  return 0;
+}
 
 struct Config {
   int ranks, band, clusters;
@@ -501,35 +529,26 @@ int configure(long long B, long long H, long long W, long long C, long long hid,
       || ranks < 0 || ranks > kMaxRanks) {
     return kErrShape;
   }
+  DeviceState* d = nullptr;
+  const int state_err = device_state(&d);
+  if (state_err != 0) return state_err;
   cudaError_t err;
-  if (g_n_sm == 0) {
-    int dev = 0;
-    err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaDeviceGetAttribute(&g_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaDeviceGetAttribute(&g_n_sm, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaFuncSetAttribute(cbam_cluster_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int r = ranks > 0 ? ranks : pick_ranks(B, H, W, C, g_n_sm);
+  const int r = ranks > 0 ? ranks : pick_ranks(B, H, W, C, d->n_sm);
   const long long band = (H + r - 1) / r;
-  if (band * W * C * 2 > g_optin) return kErrSmem;
+  if (band * W * C * 2 > d->optin) return kErrSmem;
   const long long smem = layout(r, static_cast<int>(band), static_cast<int>(W),
                                 static_cast<int>(C), static_cast<int>(hid)).bytes;
-  if (smem > g_optin) return kErrSmem;
-  if (smem > g_smem_attr) {
+  if (smem > d->optin) return kErrSmem;
+  if (smem > d->smem_attr) {
     err = cudaFuncSetAttribute(cbam_cluster_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    g_smem_attr = smem;
+    d->smem_attr = smem;
   }
   int clusters = -1;
-  for (int i = 0; i < g_n_placed; ++i) {
-    if (g_placed[i].ranks == r && g_placed[i].smem == smem) clusters = g_placed[i].clusters;
+  for (int i = 0; i < d->n_placed; ++i) {
+    if (d->placed[i].ranks == r && d->placed[i].smem == smem) clusters = d->placed[i].clusters;
   }
   if (clusters < 0) {
     cudaLaunchConfig_t lc = {};
@@ -545,8 +564,8 @@ int configure(long long B, long long H, long long W, long long C, long long hid,
     lc.numAttrs = 1;
     err = cudaOccupancyMaxActiveClusters(&clusters, cbam_cluster_kernel, &lc);
     if (err != cudaSuccess) return static_cast<int>(err);
-    g_placed[g_n_placed % 32] = Placed{r, smem, clusters};
-    if (g_n_placed < 32) ++g_n_placed;
+    d->placed[d->n_placed % 32] = Placed{r, smem, clusters};
+    if (d->n_placed < 32) ++d->n_placed;
   }
   if (clusters < 1) return kErrCluster;
   *cfg = Config{r, static_cast<int>(band), clusters, smem};

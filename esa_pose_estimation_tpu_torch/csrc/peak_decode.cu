@@ -45,6 +45,8 @@ constexpr int kNone = 0x7fffffff;  // index of an empty pair
 
 constexpr int kErrShape = -1;      // no thread count fits K, or too large
 constexpr int kErrCluster = -3;    // no cluster of R such CTAs can be placed
+constexpr int kErrDevice = -4;     // device index past kMaxDevices
+constexpr int kMaxDevices = 64;    // cards of one process with host state
 
 __device__ __forceinline__ void take_better(float& v, int& i, float ov, int oi) {
   // larger value wins; among equal values the smaller (earlier) index wins
@@ -192,10 +194,33 @@ struct Placed {
   int vec, threads, ranks, keypoints;
   int clusters;
 };
-Placed g_placed[16];
-int g_n_placed = 0;
-bool g_nonportable[2] = {false, false};
-int g_n_sm = 0;
+
+// Host state of one card, kept per device (the runtime's current device,
+// which the wrapper sets to the maps' card): its SM count, read once; each
+// kernel's non-portable cluster attribute, set once; each configuration's
+// cluster occupancy, asked once before its first launch there.
+struct DeviceState {
+  Placed placed[16];
+  int n_placed;
+  bool nonportable[2];
+  int n_sm;
+};
+DeviceState g_devices[kMaxDevices];
+
+// The current device's state, its SM count read at first use.
+int device_state(DeviceState** out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices) return kErrDevice;
+  DeviceState* d = &g_devices[dev];
+  if (d->n_sm == 0) {
+    err = cudaDeviceGetAttribute(&d->n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  *out = d;
+  return 0;
+}
 
 struct Config {
   int vec, threads, ranks, band, keypoints, clusters;
@@ -218,9 +243,9 @@ cudaLaunchConfig_t launch_config(const Config& c, cudaLaunchAttribute* attr) {
 
 // Cluster occupancy of a configuration, asked once before its first launch.
 template <int VEC>
-int place(Config* c) {
-  for (int i = 0; i < g_n_placed; ++i) {
-    const Placed& p = g_placed[i];
+int place(DeviceState* d, Config* c) {
+  for (int i = 0; i < d->n_placed; ++i) {
+    const Placed& p = d->placed[i];
     if (p.vec == VEC && p.threads == c->threads && p.ranks == c->ranks
         && p.keypoints == c->keypoints) {
       c->clusters = p.clusters;
@@ -228,18 +253,18 @@ int place(Config* c) {
     }
   }
   cudaError_t err;
-  if (!g_nonportable[VEC == 4]) {
+  if (!d->nonportable[VEC == 4]) {
     err = cudaFuncSetAttribute(peak_decode_kernel<VEC>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return static_cast<int>(err);
-    g_nonportable[VEC == 4] = true;
+    d->nonportable[VEC == 4] = true;
   }
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t lc = launch_config<VEC>(*c, attr);
   err = cudaOccupancyMaxActiveClusters(&c->clusters, peak_decode_kernel<VEC>, &lc);
   if (err != cudaSuccess) return static_cast<int>(err);
-  g_placed[g_n_placed % 16] = Placed{VEC, c->threads, c->ranks, c->keypoints, c->clusters};
-  if (g_n_placed < 16) ++g_n_placed;
+  d->placed[d->n_placed % 16] = Placed{VEC, c->threads, c->ranks, c->keypoints, c->clusters};
+  if (d->n_placed < 16) ++d->n_placed;
   return c->clusters < 1 ? kErrCluster : 0;
 }
 
@@ -250,19 +275,15 @@ int configure(bool aligned, long long B, long long H, long long W, long long K,
       || H * W * K >= (1LL << 31)) {
     return kErrShape;
   }
-  if (g_n_sm == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaDeviceGetAttribute(&g_n_sm, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  DeviceState* d = nullptr;
+  const int err = device_state(&d);
+  if (err != 0) return err;
   const int k = static_cast<int>(K);
   c->keypoints = k;
   c->ranks = ranks;
   if (ranks == 0) {
     c->ranks = 1;
-    while (2 * B * c->ranks <= g_n_sm && 2 * c->ranks <= kMaxRanks && 2 * c->ranks <= H) {
+    while (2 * B * c->ranks <= d->n_sm && 2 * c->ranks <= kMaxRanks && 2 * c->ranks <= H) {
       c->ranks *= 2;
     }
   }
@@ -270,12 +291,12 @@ int configure(bool aligned, long long B, long long H, long long W, long long K,
   c->threads = block_threads(k, 4);
   if (aligned && (W * K) % 4 == 0 && c->threads > 0) {
     c->vec = 4;
-    return place<4>(c);
+    return place<4>(d, c);
   }
   c->vec = 1;
   c->threads = block_threads(k, 1);
   if (c->threads == 0) return kErrShape;
-  return place<1>(c);
+  return place<1>(d, c);
 }
 
 template <int VEC>

@@ -41,6 +41,7 @@ _M = 64                                      # positions per wgmma (kM)
 _H_MTILES = -(-(_TILE_H + 2) * _WS // _M)    # M tiles of h (kHMTiles)
 _O_MTILES = -(-_TILE_H * _WS // _M)          # M tiles of the output
 _X_POS = (_H_MTILES * _M + 2 * _WS + 2 + 15) // 16 * 16   # staged x (kXPos)
+_ERRORS = {-4: 'the card\'s index is past the kernel\'s per-device table'}
 _fns: dict = {}
 
 
@@ -135,11 +136,14 @@ def branch_chain(x: torch.Tensor, weights: torch.Tensor,
     if x.numel() == 0 or k == 0:
         return out.copy_(x)
     scratch = torch.empty_like(x) if k > 1 else None
-    err = _entry(name)(x.data_ptr(), out.data_ptr(),
-                       scratch.data_ptr() if scratch is not None else None,
-                       wk.data_ptr(), bf.data_ptr(), b_, h, w_, k,
-                       torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, 'branch_chain')
+    # the .cu keeps its launch state per device, the runtime's current
+    # one: make it x's card
+    with torch.cuda.device(dev):
+        err = _entry(name)(x.data_ptr(), out.data_ptr(),
+                           scratch.data_ptr() if scratch is not None else None,
+                           wk.data_ptr(), bf.data_ptr(), b_, h, w_, k,
+                           torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, f'branch_chain on {dev}', _ERRORS)
     branch_chain.launches += 1
     return out
 

@@ -42,7 +42,8 @@ _SITE_RANKS = {           # kSiteRanks: (H, W, C) -> R, hrnet_esa's sites
 }
 _ERRORS = {-1: 'C must be a power of two in [8, 4096] and H*W < 2^24',
            -2: 'one band of x does not fit a block\'s shared memory',
-           -3: 'no cluster of this many CTAs can be placed on the card'}
+           -3: 'no cluster of this many CTAs can be placed on the card',
+           -4: 'the card\'s index is past the kernel\'s per-device table'}
 _fns: dict = {}
 
 
@@ -156,11 +157,16 @@ def _launch(x: torch.Tensor, fc1: torch.Tensor, fc2: torch.Tensor,
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    err = _entry('cbam_fuse_launch')(
-        x.data_ptr(), residual.data_ptr() if residual is not None else None,
-        fc1.data_ptr(), fc2.data_ptr(), spw.data_ptr(), out.data_ptr(),
-        b, h, w, c, hid, ranks, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, 'fused_cbam', _ERRORS)
+    # the .cu keeps its launch state per device, the runtime's current
+    # one: make it x's card
+    with torch.cuda.device(dev):
+        err = _entry('cbam_fuse_launch')(
+            x.data_ptr(),
+            residual.data_ptr() if residual is not None else None,
+            fc1.data_ptr(), fc2.data_ptr(), spw.data_ptr(), out.data_ptr(),
+            b, h, w, c, hid, ranks,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, f'fused_cbam on {dev}', _ERRORS)
     return out
 
 

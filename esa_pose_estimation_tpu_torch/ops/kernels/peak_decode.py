@@ -31,7 +31,8 @@ _EPS = 1e-10
 _MAX_RANKS = 16           # kMaxRanks: CTAs (bands) per image, at most
 _MAX_THREADS = 512        # kMaxThreads
 _ERRORS = {-1: 'no block size fits this K, or the maps are too large',
-           -3: 'no cluster of this many CTAs can be placed on the card'}
+           -3: 'no cluster of this many CTAs can be placed on the card',
+           -4: 'the card\'s index is past the kernel\'s per-device table'}
 
 
 def block_threads(k: int, vec: int) -> int:
@@ -100,11 +101,14 @@ def _launch(hm: torch.Tensor, return_peaks: bool = False, ranks: int = 0):
     peaks = (torch.empty((b, k), dtype=torch.int32, device=hm.device)
              if return_peaks else None)
     if hm.numel() > 0:
-        err = _entry('peak_decode_launch')(
-            hm.data_ptr(), b, h, w, k, coords.data_ptr(), maxvals.data_ptr(),
-            peaks.data_ptr() if return_peaks else None, _EPS, ranks,
-            torch.cuda.current_stream(hm.device).cuda_stream)
-        _build.check(err, 'peak_decode', _ERRORS)
+        # the .cu keeps its launch state per device, the runtime's current
+        # one: make it the maps' card
+        with torch.cuda.device(hm.device):
+            err = _entry('peak_decode_launch')(
+                hm.data_ptr(), b, h, w, k, coords.data_ptr(),
+                maxvals.data_ptr(), peaks.data_ptr() if return_peaks else None,
+                _EPS, ranks, torch.cuda.current_stream(hm.device).cuda_stream)
+        _build.check(err, f'peak_decode on {hm.device}', _ERRORS)
     return (coords, maxvals, peaks) if return_peaks else (coords, maxvals)
 
 

@@ -34,6 +34,7 @@ from esa_pose_estimation_tpu_torch.models.detector import decode_detections
 from esa_pose_estimation_tpu_torch.ops import crop as crop_ops
 from esa_pose_estimation_tpu_torch.ops import peak as peak_ops
 from esa_pose_estimation_tpu_torch.ops import pnp as pnp_mod
+from esa_pose_estimation_tpu_torch.parallel import mesh as mesh_mod
 from esa_pose_estimation_tpu_torch.utils import graphs
 
 
@@ -184,27 +185,85 @@ def make_pipeline(model, points_3d: torch.Tensor,
 
 def make_jitted_pipeline(model, points_3d: torch.Tensor,
                          K: torch.Tensor | None = None, **kwargs):
-    """Returns fn(frames, bboxes, generator=None) -> PoseOutput, the JAX
-    ``make_jitted_pipeline``: :func:`infer_poses` with the model, the
-    keypoint model and the serving keywords bound, on the card as one CUDA
-    graph per input shape (``utils/graphs.Graphed``; on CPU tensors it
-    runs eagerly).  The RANSAC uniforms are drawn from ``generator`` before
-    the replay, so a call consumes the generator as :func:`infer_poses`
-    does and returns the same poses.  ``fn.graphs`` is the
-    :class:`~utils.graphs.Graphed`."""
+    """Returns fn(frames, bboxes, generator=None, ransac_uniforms=None) ->
+    PoseOutput, the JAX ``make_jitted_pipeline``: :func:`infer_poses` with
+    the model, the keypoint model and the serving keywords bound, on the
+    card as one CUDA graph per input shape (``utils/graphs.Graphed``; on
+    CPU tensors it runs eagerly).  The RANSAC uniforms are drawn from
+    ``generator`` before the replay, so a call consumes the generator as
+    :func:`infer_poses` does and returns the same poses; uniforms drawn
+    already (``ops.pnp.draw_ransac_uniforms``) may be passed instead.
+    ``fn.graphs`` is the :class:`~utils.graphs.Graphed`."""
     graphed = graphs.Graphed(infer_poses)
-    n_hyp = kwargs.get('n_hypotheses', inspect.signature(
-        infer_poses).parameters['n_hypotheses'].default)
+    n_hyp = _n_hypotheses(kwargs)
 
-    def run(frames, bboxes, generator=None):
-        uniforms = None
-        if kwargs.get('ransac_masks') is None:
-            uniforms = pnp_mod.draw_ransac_uniforms(
+    def run(frames, bboxes, generator=None, ransac_uniforms=None):
+        if ransac_uniforms is None and kwargs.get('ransac_masks') is None:
+            ransac_uniforms = pnp_mod.draw_ransac_uniforms(
                 generator, frames.shape[:1], points_3d.shape[-2], n_hyp,
                 frames.device)
         return graphed(model, frames, bboxes, points_3d, K=K,
-                       ransac_uniforms=uniforms, **kwargs)
+                       ransac_uniforms=ransac_uniforms, **kwargs)
     run.graphs = graphed
+    return run
+
+
+def _n_hypotheses(kwargs: dict) -> int:
+    return kwargs.get('n_hypotheses', inspect.signature(
+        infer_poses).parameters['n_hypotheses'].default)
+
+
+def make_sharded_pipeline(model, points_3d: torch.Tensor, mesh,
+                          K: torch.Tensor | None = None, **kwargs):
+    """Returns fn(frames, bboxes, generator=None) -> ``parallel.mesh.Sharded``
+    of :class:`PoseOutput`, the counterpart of ``jax.jit(infer_poses,
+    in_shardings=(rep, dat, dat, rep))`` over the ``data`` axis of
+    ``mesh`` (``parallel/mesh.make_mesh``) in one process.
+
+    Each device of the mesh holds its own replica of ``model``
+    (``mesh.replicate``, of the serving form as it is now) and its own
+    :func:`make_jitted_pipeline`, so one CUDA graph per card and input
+    shape.  A call:
+
+    * draws the RANSAC uniforms of the global batch once from
+      ``generator`` (on its device, else the mesh's first), as the
+      unsharded call draws them, so it consumes the generator as
+      :func:`make_jitted_pipeline` does, and copies each card's slice to
+      it;
+    * copies each card's slice of ``frames`` and ``bboxes`` to it on that
+      card's stream (``mesh.shard_batch``: from another card or from
+      page-locked host memory the host does not wait);
+    * launches every card's replay before any result is waited on.
+
+    Shard k of the result lies on ``mesh.devices[k]`` and holds that
+    slice's poses, as JAX's output sharding leaves them;
+    ``.gather(device)`` assembles the global batch.  With CPU devices
+    each shard runs eagerly, one after another.  ``ransac_masks`` (the
+    global batch's, to inject a draw) are sharded once, with the
+    replicas."""
+    masks = kwargs.pop('ransac_masks', None)
+    mask_shards = (mesh_mod.shard_batch(masks, mesh).shards
+                   if masks is not None else [None] * len(mesh.devices))
+    runs = [make_jitted_pipeline(
+        replica, points_3d.to(dev), None if K is None else K.to(dev),
+        ransac_masks=m, **kwargs)
+        for replica, dev, m in zip(mesh_mod.replicate(model, mesh),
+                                   mesh.devices, mask_shards)]
+    n_hyp = _n_hypotheses(kwargs)
+
+    def run(frames, bboxes, generator=None):
+        uniforms = [None] * len(runs)
+        if masks is None:
+            dev = (mesh.devices[0] if generator is None
+                   else generator.device)
+            uniforms = mesh_mod.shard_batch(pnp_mod.draw_ransac_uniforms(
+                generator, frames.shape[:1], points_3d.shape[-2], n_hyp,
+                dev), mesh).shards
+        f = mesh_mod.shard_batch(frames, mesh).shards
+        b = mesh_mod.shard_batch(bboxes, mesh).shards
+        return mesh_mod.Sharded([
+            fn(fk, bk, ransac_uniforms=uk)
+            for fn, fk, bk, uk in zip(runs, f, b, uniforms)])
     return run
 
 

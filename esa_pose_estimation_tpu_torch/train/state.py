@@ -30,6 +30,7 @@ import torch
 from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
+from esa_pose_estimation_tpu_torch.parallel import mesh as mesh_mod
 from esa_pose_estimation_tpu_torch.parallel.distributed import global_mean
 from esa_pose_estimation_tpu_torch.train.loss import weighted_heatmap_loss
 from esa_pose_estimation_tpu_torch.utils import graphs
@@ -447,3 +448,50 @@ def eval_step(state: TrainState, batch: dict[str, torch.Tensor],
     out = state.model(batch['image'])
     return out, weighted_heatmap_loss(out, batch['heatmaps'],
                                       batch['weights'], W=loss_w)
+
+
+@torch.no_grad()
+def _forward_and_loss(model: nn.Module, batch: dict[str, torch.Tensor],
+                      loss_w: float) -> tuple[torch.Tensor, torch.Tensor]:
+    out = model(batch['image'])
+    return out, weighted_heatmap_loss(out, batch['heatmaps'],
+                                      batch['weights'], W=loss_w)
+
+
+def make_sharded_eval_step(mesh, loss_w: float = 10.0) -> Callable:
+    """The JAX ``make_sharded_eval_step``: returns ``fn(replicas, batch)
+    -> (heatmaps, losses)`` over the ``data`` axis of ``mesh``
+    (``parallel/mesh.make_mesh``) in one process.
+
+    ``replicas`` is ``parallel/mesh.replicate(model, mesh)``, one copy per
+    device, each run with frozen statistics; ``batch`` holds the global
+    batch's ``image``, ``heatmaps`` and ``weights``, sharded by
+    ``mesh.shard_batch``.  Each card runs its shard's forward and loss as
+    one CUDA graph per shape (``utils/graphs.Graphed``, as
+    ``eval/eval_cache.EvalCache`` does; eagerly on CPU devices), every
+    card's launched before any is waited on.  ``heatmaps`` is a
+    ``mesh.Sharded``, shard k on card k; ``losses[k]``, on card k, is the
+    global batch's :func:`eval_step` loss, the mean of the shards' equal
+    means added in device order, so every card holds the same value, as
+    JAX's replicated output does."""
+    programs = [graphs.Graphed(_forward_and_loss) for _ in mesh.devices]
+
+    def run(replicas, batch: dict[str, torch.Tensor]):
+        if len(replicas) != len(mesh.devices):
+            raise ValueError(f'{len(replicas)} replicas for a mesh of '
+                             f'{len(mesh.devices)} devices')
+        shards = mesh_mod.shard_batch(
+            {k: batch[k] for k in ('image', 'heatmaps', 'weights')},
+            mesh).shards
+        outs = []
+        for program, model, shard in zip(programs, replicas, shards):
+            model.eval()
+            outs.append(program(model, shard, loss_w))
+        losses = []
+        for dev in mesh.devices:
+            total = outs[0][1].to(dev)
+            for _, loss in outs[1:]:
+                total = total + loss.to(dev)
+            losses.append(total / len(outs))
+        return mesh_mod.Sharded([hm for hm, _ in outs]), losses
+    return run

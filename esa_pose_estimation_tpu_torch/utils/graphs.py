@@ -16,9 +16,11 @@ replays it:
   graph.
 * **capture**: one warm-up call on a side stream (device constants made
   on first use, the kernels' one-time set-up, cuDNN's plans), then the
-  capture into one memory pool shared by the live graphs of the process
-  (:func:`graph_pool`).  A capture that fails raises; nothing falls back
-  to eager on the card.
+  capture into one memory pool shared by the live graphs of the card
+  (:func:`graph_pool`), on that card's capture stream
+  (:func:`capture_stream`), with the card as the current device: a
+  process may capture on each of its cards.  A capture that fails
+  raises; nothing falls back to eager on the card.
 * **replay**: the tensor inputs are copied into the graph's static
   buffers, the graph replays, and the outputs are cloned, since JAX
   returns fresh arrays and callers keep outputs across calls.  Cloning at
@@ -54,6 +56,24 @@ import torch
 from torch import nn
 
 _POOLS: dict[int, tuple] = {}
+_CAPTURE_STREAMS: dict[int, torch.cuda.Stream] = {}
+
+
+def _index(device) -> int:
+    idx = torch.device(device).index
+    return torch.cuda.current_device() if idx is None else idx
+
+
+def capture_stream(device) -> torch.cuda.Stream:
+    """The side stream captures on ``device`` run on, one per card:
+    ``torch.cuda.graph``'s own default is one stream for the process, made
+    on the card of its first capture, and a capture on another card
+    through it would record nothing of that card's work."""
+    idx = _index(device)
+    stream = _CAPTURE_STREAMS.get(idx)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[idx] = torch.cuda.Stream(idx)
+    return stream
 
 
 def graph_pool(device: torch.device):
@@ -61,9 +81,7 @@ def graph_pool(device: torch.device):
     one per card: graphs replay one at a time on one stream, and each
     caller clones a replay's outputs before the next replay.  A pool dies
     with the last graph that used it; the next capture starts another."""
-    idx = torch.device(device).index
-    if idx is None:
-        idx = torch.cuda.current_device()
+    idx = _index(device)
     pool, live = _POOLS.get(idx, (None, None))
     if not live:
         pool, live = _POOLS[idx] = (torch.cuda.graph_pool_handle(),
@@ -220,7 +238,7 @@ def capture(fn: Callable[[], object], device: torch.device,
     graph = torch.cuda.CUDAGraph()
     pool, live = graph_pool(device)
     # thread_local: a loader thread's own CUDA calls stay legal meanwhile
-    with torch.cuda.graph(graph, pool=pool,
+    with torch.cuda.graph(graph, pool=pool, stream=capture_stream(device),
                           capture_error_mode='thread_local'):
         outputs = fn()
     live.add(graph)

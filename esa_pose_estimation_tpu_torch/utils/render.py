@@ -226,7 +226,11 @@ def rasterize_color(vertices: torch.Tensor, faces: torch.Tensor,
                           at(b2) / zs[..., 2].gather(1, wt)],
                          dim=-1) / safe_iz[..., None]         # (B, P, 3)
         vcol = vertex_colors[tri[wt]]                         # (B, P, 3, 3)
-        col = torch.einsum('bpv,bpvc->bpc', bw, vcol)
+        # both sums over the three vertices (and below the three axes)
+        # in a fixed order, element-wise, as in _flat_poses: a batched
+        # product's reduction order can follow the batch size
+        col = (bw[..., 0:1] * vcol[..., 0, :] + bw[..., 1:2] * vcol[..., 1, :]
+               + bw[..., 2:3] * vcol[..., 2, :])
         # one-sided Lambert from the camera-frame face normal, turned
         # toward the camera
         ca, cb, cc = cam[:, tri[:, 0]], cam[:, tri[:, 1]], cam[:, tri[:, 2]]
@@ -236,7 +240,8 @@ def rasterize_color(vertices: torch.Tensor, faces: torch.Tensor,
                             min=1e-12)
         centroid = (ca + cb + cc) / 3.0
         n = torch.where(((n * centroid).sum(-1) > 0)[..., None], -n, n)
-        ndotl = torch.clamp(-(n @ light), min=0.0)            # (B, C)
+        ndotl = torch.clamp(-(n[..., 0] * light[0] + n[..., 1] * light[1]
+                              + n[..., 2] * light[2]), min=0.0)  # (B, C)
         col = col * (ambient + (1.0 - ambient)
                      * ndotl[bidx, wt])[..., None]
         better = win_depth < depth

@@ -23,6 +23,16 @@ from esa_pose_estimation_tpu_torch.cli import mfu_experiments
 from esa_pose_estimation_tpu_torch.experimental import branch_chain as tbc
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _chain(seed, k, c=32):
     rng = np.random.default_rng(seed)
     w = (0.2 * rng.normal(size=(k, 2, 3, 3, c, c)) / np.sqrt(9.0 * c)

@@ -28,6 +28,16 @@ from esa_pose_estimation_tpu_torch.experimental.cbam_fuse import (
 from esa_pose_estimation_tpu_torch.models import layers
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed, h, w, c, b=2):
     rng = np.random.default_rng(seed)
     hid = max(c // 16, 1)
@@ -174,7 +184,8 @@ def test_cluster_constants_mirror_the_cuda_source():
     rows = {(int(h), int(w), int(c)): int(r) for h, w, c, r in
             re.findall(r'\{(\d+), (\d+), (\d+), (\d+)\}', table)}
     assert rows == _SITE_RANKS
-    assert {int(consts[k]) for k in ('kErrShape', 'kErrSmem', 'kErrCluster')
+    assert {int(consts[k]) for k in ('kErrShape', 'kErrSmem', 'kErrCluster',
+                                     'kErrDevice')
             } == set(cbam_fuse_mod._ERRORS)
     # the default rule: the smallest power of two whose band fits
     assert [cluster_ranks(*s) for s in ((20, 36, 64), (21, 36, 64),

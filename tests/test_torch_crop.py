@@ -14,6 +14,16 @@ from esa_pose_estimation_tpu.ops import crop as jcrop
 from esa_pose_estimation_tpu_torch.ops import crop as tcrop
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _boxes(w, h):
     """Interior, edge-touching and larger-than-frame boxes (x1, y1, x2, y2)."""
     return np.array([

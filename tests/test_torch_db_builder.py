@@ -10,11 +10,23 @@ import pickle
 
 import numpy as np
 import pytest
+import torch
 
 from esa_pose_estimation_tpu.data import db_builder as jdbb
 from esa_pose_estimation_tpu.data import linemod as jlm
 from esa_pose_estimation_tpu_torch.data import db_builder as dbb
 from esa_pose_estimation_tpu_torch.data import linemod as lm
+
+
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 CLS = 'cat'
 H, W = 480, 640

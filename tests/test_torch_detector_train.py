@@ -45,6 +45,17 @@ from esa_pose_estimation_tpu_torch.utils.artifact import (
 from tests.test_torch_detector import _calibrated_variables
 from tests.test_torch_train_data import _jax_perturb_draws
 
+
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LR = 1e-3
 
 

@@ -9,9 +9,20 @@ its own backend and is tested by tests/test_device_probe.py.
 import os
 import time
 
+import pytest
 import torch
 
 from esa_pose_estimation_tpu_torch.utils import device_probe
+
+
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_probe_reports_the_cuda_count_within_deadline():

@@ -36,6 +36,17 @@ from esa_pose_estimation_tpu.parallel import distributed as jdist
 from esa_pose_estimation_tpu_torch.data import shards
 from esa_pose_estimation_tpu_torch.parallel import distributed as tdist
 
+
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR = 1e-3
 STEPS = 3
@@ -95,7 +106,7 @@ WORKER = textwrap.dedent('''
 
 
 def _env():
-    env = dict(os.environ, OMP_NUM_THREADS='2')
+    env = dict(os.environ, OMP_NUM_THREADS='1')
     env['PYTHONPATH'] = ROOT + os.pathsep + env.get('PYTHONPATH', '')
     return env
 
@@ -143,16 +154,6 @@ def test_without_a_group_one_process(monkeypatch):
     assert tdist.global_mean(x) is x
     tdist.barrier()
     tdist.shutdown()
-
-
-@pytest.fixture
-def one_thread():
-    """Small CPU steps on one thread: beside the suite's other workers,
-    more threads only wait on each other."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_ddp_mode_rehearses_alone_on_the_cpu(tmp_path, one_thread):

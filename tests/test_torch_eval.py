@@ -11,9 +11,21 @@ per-frame scores, to the printed rounding.
 
 import numpy as np
 import pytest
+import torch
 
 from esa_pose_estimation_tpu_torch.cli import eval_synthetic
 from esa_pose_estimation_tpu_torch.models import layers
+
+
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ARTIFACT = 'artifacts/esa_syn_r5.npz'
 # the keys of the JAX command's JSON line (cli/eval_synthetic.py:221-231)

@@ -28,6 +28,17 @@ from esa_pose_estimation_tpu_torch.core import linalg as tlin
 from esa_pose_estimation_tpu_torch.ops import epnp as tepnp
 from esa_pose_estimation_tpu_torch.ops import pnp as tpnp
 
+
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 SPEED_K = np.asarray(jcam.SPEED_K, np.float32)
 LINEMOD_K = np.asarray(jcam.LINEMOD_K, np.float32)

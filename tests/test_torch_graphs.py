@@ -60,6 +60,17 @@ from esa_pose_estimation_tpu_torch.utils import config as tcfg
 from esa_pose_estimation_tpu_torch.utils import graphs
 from esa_pose_estimation_tpu_torch.utils.artifact import from_jax_variables
 
+
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SPEED_K = np.asarray(jcamera.SPEED_K, np.float32)
 LR = 1e-3
 TRAIN_CFG = dict(batch_size=8, crop_size=32, lr=LR,

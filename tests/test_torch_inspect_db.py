@@ -8,10 +8,21 @@ import pickle
 
 import numpy as np
 import pytest
+import torch
 
 from esa_pose_estimation_tpu.cli import inspect_db as jinspect
 from esa_pose_estimation_tpu_torch.cli import inspect_db as tinspect
 from esa_pose_estimation_tpu_torch.data import speed_gen
+
+
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _pickles(tmp_path):

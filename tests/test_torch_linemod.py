@@ -52,6 +52,16 @@ from tests.test_linemod_real import (  # noqa: F401  (data2 is a fixture)
 )
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def T(a):
     return torch.from_numpy(np.array(a))
 

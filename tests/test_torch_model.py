@@ -18,6 +18,16 @@ from esa_pose_estimation_tpu_torch.models import layers as tlayers
 from esa_pose_estimation_tpu_torch.utils.artifact import from_jax_variables
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize('scale', [2, 4, 8])
 def test_resize_half_pixel_matches_jax_image_resize(scale):
     """F.interpolate(align_corners=False) equals jax.image.resize for the

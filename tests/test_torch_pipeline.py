@@ -40,6 +40,17 @@ from esa_pose_estimation_tpu_torch.eval import speed_score as tscore
 from esa_pose_estimation_tpu_torch.ops import crop as tcrop
 from esa_pose_estimation_tpu_torch.utils.artifact import load_hrnet_artifact
 
+
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARTIFACT = 'artifacts/esa_syn_r5.npz'
 N_HYP = 64
 

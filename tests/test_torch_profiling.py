@@ -10,6 +10,7 @@ long as the work it waits for.
 import time
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -21,6 +22,16 @@ from esa_pose_estimation_tpu.utils import config as jcfg
 from esa_pose_estimation_tpu_torch.models.hrnet import HRNet
 from esa_pose_estimation_tpu_torch.obs import profiling as tprof
 from esa_pose_estimation_tpu_torch.utils import config as tcfg
+
+
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_param_counts_equal_jax():

@@ -16,6 +16,18 @@ import pickle
 
 import numpy as np
 import pytest
+import torch
+
+
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 N_TRAIN, N_TEST, N_REAL = 48, 8, 4
 

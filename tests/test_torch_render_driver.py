@@ -19,10 +19,22 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from esa_pose_estimation_tpu.cli.train_linemod import make_icosphere
 from esa_pose_estimation_tpu.utils import render_driver as jrd
 from esa_pose_estimation_tpu_torch.utils import render_driver as rd
+
+
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 FAKE_RENDERER = r'''#!{python}
 import argparse, os, sys

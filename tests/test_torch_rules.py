@@ -10,6 +10,17 @@ import torch
 
 from esa_pose_estimation_tpu.data import synthetic as jsyn
 
+
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax',
              'esa_pose_estimation_tpu', 'scripts')
@@ -50,7 +61,8 @@ def test_port_imports_no_jax():
             'cli/dress_rehearsal.py', 'utils/torch_import.py',
             'obs/profiling.py', 'utils/device_probe.py',
             'utils/render_driver.py', 'data/db_builder.py', 'models/vgg.py',
-            'ops/pose_nms.py', 'ops/transforms.py', 'utils/graphs.py'} <= names
+            'ops/pose_nms.py', 'ops/transforms.py', 'utils/graphs.py',
+            'pipeline.py', 'cli/mfu_experiments.py'} <= names
     bad = {str(f.relative_to(ROOT)): sorted(m for m in _imported_modules(f)
                                             if _forbidden(m))
            for f in files}
@@ -179,6 +191,46 @@ def test_cpu_entry_points_never_touch_cuda(monkeypatch, tmp_path):
                           '--crop-size', '32', '--train-shard', shard,
                           '--eval-every', '1', '--device', 'cpu'] + crop)
         assert 'speed' in res
+
+
+def test_cpu_mesh_never_touches_cuda(monkeypatch):
+    """A mesh of CPU devices: make_mesh, shard_batch, replicate, the
+    sharded pipeline and the sharded eval step, gathered: no CUDA call and
+    no kernel build."""
+    from esa_pose_estimation_tpu_torch import _build, pipeline
+    from esa_pose_estimation_tpu_torch.data import synthetic as tsyn
+    from esa_pose_estimation_tpu_torch.models.hrnet import HRNet
+    from esa_pose_estimation_tpu_torch.parallel import mesh as tmesh
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+    from esa_pose_estimation_tpu_torch.utils import config
+
+    def refuse(*a, **k):
+        raise AssertionError('CUDA touched on a CPU path')
+
+    monkeypatch.setattr(torch.cuda, '_lazy_init', refuse)
+    monkeypatch.setattr(torch.cuda, 'current_stream', refuse)
+    monkeypatch.setattr(torch.cuda, 'current_device', refuse)
+    monkeypatch.setattr(_build, 'load', refuse)
+    monkeypatch.setattr(_build, 'build_all', refuse)
+    mesh = tmesh.make_mesh(devices=[torch.device('cpu')] * 2)
+    model = HRNet(config.hrnet_tiny()).init_weights(
+        torch.Generator().manual_seed(0)).eval()
+    frames = torch.rand((4, 96, 96), generator=torch.Generator().manual_seed(
+        1)) * 255
+    boxes = torch.tensor([[8.0, 8.0, 80.0, 80.0]]).repeat(4, 1)
+    out = pipeline.make_sharded_pipeline(
+        model, tsyn.spacecraft_points(n=6), mesh, crop_size=32,
+        n_hypotheses=4, lm_iters=1)(frames, boxes,
+                                    torch.Generator().manual_seed(2))
+    got = out.gather()
+    assert got.quat.shape == (4, 4) and got.quat.device.type == 'cpu'
+    batch = {'image': torch.randn(4, 32, 32, 1),
+             'heatmaps': torch.rand(4, 32, 32, 6),
+             'weights': torch.rand(4, 32, 32, 6)}
+    heatmaps, losses = tstate.make_sharded_eval_step(mesh)(
+        tmesh.replicate(model, mesh), batch)
+    assert heatmaps.gather().shape == (4, 32, 32, 6)
+    assert len(losses) == 2 and torch.isfinite(losses[0])
 
 
 def test_cpu_training_never_touches_cuda(monkeypatch, tmp_path):

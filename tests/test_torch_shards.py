@@ -28,6 +28,16 @@ from esa_pose_estimation_tpu_torch.data.pipeline import (
 from esa_pose_estimation_tpu_torch.ops import crop as crop_ops
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _records(n=10, h=60, w=96, k=5, seed=0):
     rng = np.random.default_rng(seed)
     out = []

@@ -25,6 +25,17 @@ from esa_pose_estimation_tpu_torch.data import speed as tspeed
 from esa_pose_estimation_tpu_torch.data import speed_gen as tsg
 from esa_pose_estimation_tpu_torch.data import synthetic as tsyn
 
+
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N_TRAIN, N_TEST, N_REAL = 12, 4, 3
 H, W, N_KP = 240, 384, 6
 

@@ -66,6 +66,17 @@ from tests.test_torch_train_data import (
     _jax_perturb_draws,
 )
 
+
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LR = 1e-3
 
 
@@ -367,16 +378,6 @@ def test_make_train_steps_checks_its_inputs():
         tstate.make_train_steps(st, tstate.heatmap_step_loss, 0)
     cpu = tstate.make_train_steps(st, tstate.heatmap_step_loss)
     assert not isinstance(cpu, tstate.StepGraph)
-
-
-@pytest.fixture
-def one_thread():
-    """Small CPU steps on one thread: beside the suite's other workers,
-    more threads only wait on each other."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize('steps', [1, tstate.DDP_WARM_UP_STEPS])

@@ -45,6 +45,17 @@ from esa_pose_estimation_tpu_torch.utils.artifact import (
     read_artifact,
 )
 
+
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LR = 1e-3
 TRAIN_CFG = dict(batch_size=8, crop_size=32, lr=LR,
                  lr_values=(LR, 1e-4, 1e-5, 1e-6))

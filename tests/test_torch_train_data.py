@@ -26,6 +26,17 @@ from esa_pose_estimation_tpu_torch.data import augment as taug
 from esa_pose_estimation_tpu_torch.data import pipeline as tpipe
 from esa_pose_estimation_tpu_torch.data import synthetic as tsyn
 
+
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MEAN, STD = 0.449, 0.229
 
 

@@ -11,10 +11,21 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from esa_pose_estimation_tpu.obs import visual as jvis
 from esa_pose_estimation_tpu_torch.data import linemod as tlm
 from esa_pose_estimation_tpu_torch.obs import visual as tvis
+
+
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_bb8_corners_is_one_function_and_equals_jax():

@@ -44,6 +44,16 @@ from esa_pose_estimation_tpu_torch.ops import voting as tvot
 from tests.test_voting import make_field
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def T(a):
     return torch.from_numpy(np.array(a))
 

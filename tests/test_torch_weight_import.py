@@ -38,6 +38,17 @@ from esa_pose_estimation_tpu_torch.utils.artifact import (
     to_jax_variables,
 )
 
+
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """One torch thread for this file's tests: the suite runs beside other
+    workers on few cores, where more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 NARROW = dict(depth=18, fc_dim=16, s8_dim=16, s4_dim=8, s2_dim=8, raw_dim=8)
 
 
