@@ -181,6 +181,22 @@ ground truth, and times the path.  Phases:
                  sharded eval step: heatmaps torch.equal to eval_step per
                  shard, the loss the same on every card and within 1e-6
                  relative of eval_step's
+ 23. model axis  (a) four processes on this card in a gloo group (NCCL
+                 refuses two ranks on one card) at the (2, 2) mesh:
+                 hrnet_esa from r5 at full width through shard_state (28
+                 convs split) under DDP over the data group, 2 images a
+                 data slice, 3 eager steps in bf16 (finite; whole
+                 tensors bit-equal on the four ranks and split slices in
+                 each data group) and in f32, held to the same 3 steps of
+                 one process on the 4 images (loss 1e-5 relative at the
+                 first step, 1e-4 after; grad_norm 1e-4, then 1e-3;
+                 statistics 1e-5, then 1e-4; parameters within 2 lr a
+                 step); (b) while they run, a one-rank NCCL group:
+                 the (1, 1) mesh through shard_state and the captured scan
+                 torch.equal to phase 15b's program; (c) the gathered
+                 (2, 2) model serves phase 5's frames, FUSED_CBAM off and
+                 on: K1 once and K2 0 or 29 times by the counters and the
+                 profiler, SPEED median <= 0.01
 
 Kernel and plain times (``ms``, ``plain_ms``) are means of eager calls
 between CUDA events, host cost included, as in earlier PRs; K1 and K2 are
@@ -197,7 +213,8 @@ rehearsal (in-train evals and cli.evaluate) and in phase 19b's
 cli.train_linemod from built DBs; for K1 and K2 in phase 18's imported
 reference checkpoint and, by the profiler, in one replay of phase 20's
 serving graph; in phase 21d's cli.train --train-pkl; for K1 and K2 in one
-call of phase 22's sharded pipeline; a replay adds what
+call of phase 22's sharded pipeline; for K1 and K2 in one FUSED_CBAM call
+of phase 23c's gathered model; a replay adds what
 its capture recorded to the counts, ``utils/graphs.py``; error
 against its plain version, times, bound); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3826,6 +3843,227 @@ def phase_sharded(model, pts, s) -> tuple[int, int]:
     return launches
 
 
+# phase 23: the model axis on one card
+MODEL_AXIS_PER_SHARD = 2      # 23a: images per data slice at (2, 2)
+
+
+def model_axis_rank(rank: int, port: int, out: str) -> None:
+    """23a, one of four processes on cuda:0 in a gloo group (NCCL refuses
+    two ranks on one card), at the (2, 2) mesh: hrnet_esa from r5 placed
+    on it (``parallel/mesh.shard_state``; each rank from r5 plus its
+    rank) and wrapped over its data group, three eager train steps on its
+    data slice, in bf16 (the slice's precision: whether the replicas are
+    bit-equal, whole tensors across the four and split slices across
+    each data group; the gathered model for 23c) and in f32 (held to one
+    process by the caller).  Rank 0 saves both to ``out``."""
+    import torch.distributed as dist
+    import_port()
+    from esa_pose_estimation_tpu_torch.cli import mfu_experiments as mfu
+    from esa_pose_estimation_tpu_torch.parallel import mesh as mesh_mod
+    torch.cuda.set_device(0)
+    dev = torch.device('cuda', 0)
+    dist.init_process_group('gloo', init_method=f'tcp://localhost:{port}',
+                            world_size=4, rank=rank)
+    try:
+        mesh = mesh_mod.make_mesh(2, 2)
+        batches = mfu.step_batches(dev, mesh.coordinate[0],
+                                   MODEL_AXIS_PER_SHARD, False, SEED)
+        st = mfu.replica_state(dev, mesh=mesh)
+        bf16, _, bf16_whole = mfu.split_steps(st, batches)
+        flags = mfu._ranks([int(mfu.replicas_equal(st))], dev)
+        split = len(mesh_mod.split_convs(st.model))
+        del st
+        f32, first, whole = mfu.split_steps(
+            mfu.replica_state(dev, mesh=mesh, dtype=torch.float32), batches)
+        torch.cuda.synchronize()
+        if rank == 0:
+            torch.save({'bf16': bf16, 'f32': f32, 'split': split,
+                        'replicas': [f[0] for f in flags],
+                        'backend': dist.get_backend(),
+                        'bf16_model': bf16_whole.model.state_dict(),
+                        'f32_first': first.state_dict(),
+                        'f32_model': whole.model.state_dict()}, out)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def model_axis_gloo(dev, meanwhile):
+    """23a: four gloo processes at (2, 2) on this card, their f32 steps
+    against the same three steps in this process on the whole batch (4
+    images), at ``cli/mfu_experiments``' tolerances (step_differences);
+    their bf16 steps finite and their replicas bit-equal.  This process
+    runs ``meanwhile()`` while they finish.  Returns the gathered
+    bf16-trained model's state dict."""
+    import os
+
+    from esa_pose_estimation_tpu_torch.cli import mfu_experiments as mfu
+    out, port = f'{WORK}/model_axis.pt', free_port()
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    procs = [subprocess.Popen(
+        [sys.executable, '-c', f'import chip_smoke; chip_smoke.'
+         f'model_axis_rank({r}, {port}, {out!r})'], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(4)]
+    try:
+        slices = [mfu.step_batches(dev, d, MODEL_AXIS_PER_SHARD, False, SEED)
+                  for d in (0, 1)]
+        batches = [{k: torch.cat([b[k] for b in pair])
+                    for k in ('image', 'heatmaps', 'weights')}
+                   for pair in zip(*slices)]
+        want, want_first, ref = mfu.split_steps(
+            mfu.replica_state(dev, dtype=torch.float32), batches)
+        meanwhile()
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode:
+            raise AssertionError(f'23a: rank {r} exited {p.returncode}: '
+                                 f'{text[-3000:]}')
+    got = torch.load(out, map_location=dev, weights_only=True)
+
+    def f32_model(key):
+        m = mfu.r5_masters(dev, torch.float32)
+        m.load_state_dict(got[key])
+        return m
+    whole = type(ref)(f32_model('f32_model'), None, ref.schedule)
+    diff = mfu.step_differences(f32_model('f32_first'), whole, want_first,
+                                ref, got['f32'], want)
+    finite = all(math.isfinite(m[k]) for m in got['bf16'] for k in m)
+    log(f'model axis 23a: four {got["backend"]} processes on one card at '
+        f'(2, 2), hrnet_esa from r5 at {MODEL_AXIS_PER_SHARD} images a data '
+        f'slice, {got["split"]} convs split, 3 eager steps; bf16: losses '
+        f'{[round(m["loss"], 6) for m in got["bf16"]]}, finite {finite}, '
+        f'replicas bit-equal by rank {got["replicas"]}; f32 against one '
+        f'process on the 4 images: loss '
+        f'{[f"{v:.3g}" for v in diff["loss_rel"]]} relative (first '
+        f'{mfu.FIRST_LOSS_RTOL}, then '
+        f'{mfu.STEP_LOSS_RTOL}), grad_norm '
+        f'{[f"{v:.3g}" for v in diff["grad_norm_rel"]]} (first '
+        f'{mfu.FIRST_NORM_RTOL}, then {mfu.STEP_NORM_RTOL}); after the '
+        f'first step parameters {diff["first_param_lrs"]:.3g} lr, '
+        f'statistics {diff["first_stat_excess"]:.3g} beyond '
+        f'{mfu.FIRST_STAT_TOL} relative (limits {mfu.STEP_PARAM_LRS}, '
+        f'{mfu.FIRST_STAT_TOL}); after the third {diff["param_lrs"]:.3g} '
+        f'lr, {diff["stat_excess"]:.3g} beyond {mfu.STEP_STAT_TOL} (limits '
+        f'{mfu.STEP_PARAM_LRS * 3}, {mfu.STEP_STAT_TOL})')
+    if not (diff['within'] and finite and all(got['replicas'])
+            and got['split'] == 28):
+        raise AssertionError(f'23a: {diff}, finite {finite}, replicas '
+                             f'{got["replicas"]}, {got["split"]} split')
+    return got['bf16_model']
+
+
+def model_axis_one_rank(dev) -> None:
+    """23b: in a one-rank NCCL group made for graphs, the (1, 1) mesh
+    through shard_state (nothing split) and the synthetic scan as a CUDA
+    graph (4 steps a graph, batch 32, two calls) against phase 15b's
+    program, the same scan of a state wrapped with no mesh, from one start
+    on the same draws: losses and states torch.equal."""
+    import torch.distributed as dist
+
+    from esa_pose_estimation_tpu_torch.cli import mfu_experiments as mfu
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.parallel import mesh as mesh_mod
+    from esa_pose_estimation_tpu_torch.parallel.distributed import (
+        prepare_nccl_for_graphs,
+    )
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+    from esa_pose_estimation_tpu_torch.utils.seeding import generator
+    prepare_nccl_for_graphs()
+    dist.init_process_group('nccl', init_method=f'tcp://localhost:'
+                            f'{free_port()}', world_size=1, rank=0)
+    try:
+        mesh = mesh_mod.make_process_mesh(1, 1)
+        plain, placed = mfu.replica_state(dev), mfu.replica_state(dev,
+                                                                  mesh=mesh)
+        pts = synthetic.spacecraft_points(device=dev)
+        fn = tstate.BatchFn(
+            draw=lambda g: synthetic.draw_batch(g, GROUP_BATCH, 128,
+                                                device=dev),
+            make=lambda d: synthetic.make_batch(None, GROUP_BATCH, pts,
+                                                crop_size=128, draws=d))
+        losses = []
+        for st in (plain, placed):
+            scan = tstate.make_scan_step(st, fn, mfu.DDP_SCAN_STEPS)
+            gen = generator(dev, SEED, 1, GROUP_BATCH, 0)
+            losses.append(torch.cat([scan(gen) for _ in range(2)]))
+            captured = scan.capture is not None
+            del scan
+        torch.cuda.synchronize()
+        equal = (torch.equal(*losses) and mfu.trained_equal(plain, placed))
+        split = len(mesh_mod.split_convs(placed.model))
+    finally:
+        dist.destroy_process_group()
+    log(f'model axis 23b: (1, 1) mesh in a one-rank NCCL group, {split} '
+        f'convs split, the scan captured {captured}: 8 steps at batch '
+        f'{GROUP_BATCH} torch.equal to phase 15b\'s program (no mesh) in '
+        f'losses, parameters, statistics and Adam: {equal}')
+    if not (equal and split == 0 and captured):
+        raise AssertionError('23b: the (1, 1) mesh changed the program')
+    torch.cuda.empty_cache()
+
+
+def model_axis_serving(sd, pts, s) -> tuple[int, int]:
+    """23c: the gathered (2, 2) model in the serving form serves phase 5's
+    frames, FUSED_CBAM off and on: K1 once and K2 0 or 29 times, by the
+    counters and by the profiler's kernels; SPEED median <= 0.01.
+    Returns the FUSED_CBAM run's launches."""
+    from esa_pose_estimation_tpu_torch.cli import mfu_experiments as mfu
+    from esa_pose_estimation_tpu_torch.eval.speed_score import (
+        speed_score_from_matrices,
+    )
+    from esa_pose_estimation_tpu_torch.experimental.cbam_fuse import (
+        fused_cbam,
+    )
+    from esa_pose_estimation_tpu_torch.models import layers
+    from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
+        peak_decode,
+    )
+    model = mfu.serving_form(sd, DEVICE)
+    launches = (0, 0)
+    for fused in (False, True):
+        layers.FUSED_CBAM = fused
+        try:
+            peak_decode.launches = fused_cbam.launches = 0
+            out = serve(model, s, pts)
+            torch.cuda.synchronize()
+            launches = (peak_decode.launches, fused_cbam.launches)
+            k1, k2, _ = replay_kernels(lambda: serve(model, s, pts))
+        finally:
+            layers.FUSED_CBAM = False
+        med = statistics.median(speed_score_from_matrices(
+            out.R, out.trans, s.quat, s.trans).speed.cpu().tolist())
+        want = (1, 29 if fused else 0)
+        log(f'model axis 23c: the gathered (2, 2) model serves phase 5\'s '
+            f'{s.image.shape[0]} frames, FUSED_CBAM={fused}: K1, K2 '
+            f'launches {launches}, device kernels {(k1, k2)} (want {want});'
+            f' SPEED median {med:.5f} (limit 0.01)')
+        if launches != want or (k1, k2) != want or not med <= 0.01:
+            raise AssertionError(f'23c FUSED_CBAM={fused}: launches '
+                                 f'{launches}, kernels {(k1, k2)}, median '
+                                 f'{med}')
+    return launches
+
+
+def phase_model_axis(pts, s) -> tuple[int, int]:
+    """23: the model axis on one card: 23a four gloo processes at (2, 2)
+    against one process; 23b, while they run, the (1, 1) mesh against
+    phase 15b's program; 23c the gathered model served through K1 and K2.
+    Returns K1's and K2's launches in 23c's FUSED_CBAM call."""
+    t0 = time.perf_counter()
+    dev = torch.device('cuda', torch.cuda.current_device())
+    sd = model_axis_gloo(dev, lambda: model_axis_one_rank(dev))
+    torch.cuda.empty_cache()
+    launches = model_axis_serving(sd, pts, s)
+    log(f'model axis: phase {time.perf_counter() - t0:.1f} s')
+    return launches
+
+
 def main() -> None:
     global WORK
     WORK = tempfile.mkdtemp(prefix='chip_smoke_')
@@ -3875,6 +4113,8 @@ def run() -> None:
     k1['launches_pickle_train_eval'] = phase_step_graphs(planted, pts)
     (k1['launches_sharded_serving'],
      k2['launches_sharded_serving']) = phase_sharded(model, pts, frames)
+    (k1['launches_model_axis_serving'],
+     k2['launches_model_axis_serving']) = phase_model_axis(pts, frames)
     log(f'total: {time.perf_counter() - t_start:.1f} s')
     # graph_ms / plain_graph_ms (K1 and K2): the same calls replayed from a
     # CUDA graph, beside ms / plain_ms by eager calls as in earlier PRs;
@@ -3896,7 +4136,9 @@ def run() -> None:
     # profiler; launches_pickle_train_eval (K1): in the in-train evaluate of
     # phase 21d's cli.train --train-pkl (two batches of 32 frames);
     # launches_sharded_serving (K1 and K2): in one FUSED_CBAM call of phase
-    # 22's sharded pipeline over its last mesh (one per shard; 29 K2 each)
+    # 22's sharded pipeline over its last mesh (one per shard; 29 K2 each);
+    # launches_model_axis_serving (K1 and K2): in one FUSED_CBAM serving
+    # call of phase 23c's gathered (2, 2) model
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
             'graph_ms', 'plain_graph_ms', 'launches_two_stage',
@@ -3905,7 +4147,7 @@ def run() -> None:
             'launches_rehearsal_train_eval', 'launches_rehearsal_evaluate',
             'launches_imported_checkpoint', 'launches_linemod_db_eval',
             'launches_graph_replay', 'launches_pickle_train_eval',
-            'launches_sharded_serving')
+            'launches_sharded_serving', 'launches_model_axis_serving')
     print(json.dumps({'kernels': [{k: rec[k] for k in keys if k in rec}
                                   for rec in (k1, k2, k3)]}))
     print(json.dumps({'ok': True, 'device': {

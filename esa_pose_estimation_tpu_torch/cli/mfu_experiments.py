@@ -2,8 +2,8 @@
 
     python -m esa_pose_estimation_tpu_torch.cli.mfu_experiments [--chain |
         --int8 | --int8-matmul | --cluster-sweep | --repeat | --k2-case |
-        --determinism | --sharded | --ddp [--coordinator host:port
-        --num-processes N --process-id i]]
+        --determinism | --sharded | (--ddp | --model-axis) [--coordinator
+        host:port --num-processes N --process-id i]]
 
 Port of the JAX package's ``scripts/mfu_experiments.py``.  Every mode times
 on the card with CUDA events and reports its share of the card's bf16
@@ -81,6 +81,21 @@ CUDA device.  Modes:
   --host-crop``: no eager step on the card, K1 in every rank's eval, the
   same finite epoch losses in every rank's log.  ``--device cpu --tiny``
   rehearses it under gloo.
+* ``--model-axis``: the mesh's ``model`` axis in the group of the
+  README's loop of processes (like ``--ddp``).  Rank 0 writes the
+  ``--ddp`` shard.  On each mesh of (N, 1), (N / 2, 2) and (1, N), the
+  scan and the shard route's step of ``hrnet_esa`` from r5 at 32 images
+  a data slice, placed by ``parallel/mesh.shard_state`` and wrapped over
+  the data group, replayed against ``StepGraph.run_eagerly`` as in
+  ``--ddp`` (every rank ``torch.equal``; whole tensors bit-equal on
+  every rank, split slices within each data group); ms a step, images/s,
+  NCCL kernels a replay, capture seconds, peak memory of every rank.
+  Then three eager f32 steps of each mesh with a model axis against its
+  unsplit reference on the same global batches ((N / 2, 1) on the first
+  ranks, one card for (1, N)) at the tolerances of :func:`step_differences`,
+  and the gathered model serving phase 10's 128 held-out frames through
+  ``make_jitted_pipeline`` (SPEED median <= 0.01).  ``--device cpu
+  --tiny`` rehearses it under gloo.
 * ``--sharded``: serving over the ``data`` axis of every visible card of
   one process (``pipeline.make_sharded_pipeline``).  First K1, K2 and K3
   on each card with card 0 left current, each card's output bit-equal to
@@ -478,9 +493,10 @@ class TrainCase(NamedTuple):
     loss_fn: Callable
 
 
-def r5_masters(dev) -> nn.Module:
+def r5_masters(dev, dtype=torch.bfloat16) -> nn.Module:
     """The r5 weights as a training model holds them: f32 parameters of
-    the bf16 hrnet_esa, channels_last."""
+    the bf16 hrnet_esa (or of one that computes in ``dtype``),
+    channels_last."""
     from esa_pose_estimation_tpu_torch.models.hrnet import HRNet
     from esa_pose_estimation_tpu_torch.utils import config as cfg_mod
     from esa_pose_estimation_tpu_torch.utils.artifact import (
@@ -488,7 +504,7 @@ def r5_masters(dev) -> nn.Module:
         read_artifact,
     )
     variables, _ = read_artifact(str(R5_ARTIFACT))
-    model = HRNet(cfg_mod.hrnet_esa(), dtype=torch.bfloat16)
+    model = HRNet(cfg_mod.hrnet_esa(), dtype=dtype)
     model.load_state_dict(from_jax_variables(variables), strict=True)
     return model.to(dev, memory_format=torch.channels_last)
 
@@ -712,16 +728,21 @@ class StepRoutes:
                 f'card')
 
 
-def replica_state(dev, tiny: bool = False):
-    """A train state of ``hrnet_esa`` from r5 (f32 masters, bf16 compute;
-    ``tiny``: ``hrnet_tiny`` in f32 from a seed) at 12c's rate, wrapped by
-    ``parallel/mesh.wrap_data_parallel`` when a group is joined.  Every
-    rank starts elsewhere (its own seed; r5 plus the rank), so the
-    replicas agree only if the wrapper broadcast rank 0's parameters
-    before the first step."""
+def replica_state(dev, tiny: bool = False, mesh=None,
+                  dtype=torch.bfloat16):
+    """A train state of ``hrnet_esa`` from r5 (f32 masters, computing in
+    ``dtype``; ``tiny``: ``hrnet_tiny`` in f32 from a seed) at 12c's
+    rate, wrapped by
+    ``parallel/mesh.wrap_data_parallel`` when a group is joined; with a
+    process ``mesh``, placed on it first (``parallel/mesh.shard_state``)
+    and wrapped over its data group.  Every rank starts elsewhere (its own
+    seed; r5 plus the rank), so the replicas agree only if rank 0's
+    parameters were broadcast before the first step (over the model
+    group, then over the data group)."""
     from esa_pose_estimation_tpu_torch.models.hrnet import HRNet
     from esa_pose_estimation_tpu_torch.parallel import distributed as pdist
     from esa_pose_estimation_tpu_torch.parallel.mesh import (
+        shard_state,
         wrap_data_parallel,
     )
     from esa_pose_estimation_tpu_torch.train import state as tstate
@@ -731,14 +752,17 @@ def replica_state(dev, tiny: bool = False):
         model = HRNet(cfg_mod.hrnet_tiny()).to(dev).init_weights(
             generator(dev, SEED, pdist.rank()))
     else:
-        model = r5_masters(dev)
+        model = r5_masters(dev, dtype)
         if pdist.rank():
             with torch.no_grad():
                 for p in model.parameters():
                     p.add_(float(pdist.rank()))
     st = tstate.create_train_state(
         model, cfg_mod.TrainConfig(lr_boundaries=(0, 100, 170)), 1000)
-    if torch.distributed.is_initialized():
+    if mesh is not None:
+        shard_state(st, mesh)
+        st.train_model = wrap_data_parallel(model, mesh)
+    elif torch.distributed.is_initialized():
         st.train_model = wrap_data_parallel(model)
     return st
 
@@ -762,18 +786,30 @@ def _ranks(values: list[int], dev) -> list[list[int]]:
 
 def replicas_equal(st) -> bool:
     """Whether this rank's parameters, statistics and optimizer state are
-    bit-equal to rank 0's (each broadcast from rank 0 and compared); True
-    without a group."""
+    bit-equal to rank 0's (each broadcast from rank 0 and compared), and
+    under a ``model`` axis (``st.mesh``) each split weight and its Adam
+    moments to those of the first rank of its data group; True without a
+    group."""
     import torch.distributed as dist
 
+    from esa_pose_estimation_tpu_torch.parallel.mesh import split_convs
     from esa_pose_estimation_tpu_torch.train.state import state_tensors
     if not dist.is_initialized():
         return True
     dev = next(st.model.parameters()).device
+    split = set()
+    for conv in split_convs(st.model):
+        split |= {id(v) for v in [conv.weight, *st.optimizer.state.get(
+            conv.weight, {}).values()] if v.shape == conv.weight.shape}
+    mesh = st.mesh
     same = True
     for t in state_tensors(st):
         ref = t.detach().to(dev).clone()
-        dist.broadcast(ref, 0)
+        if id(t) in split:
+            dist.broadcast(ref, mesh.ranks[0][mesh.coordinate[1]],
+                           group=mesh.data.group)
+        else:
+            dist.broadcast(ref, 0)
         same &= torch.equal(ref, t.detach().to(dev))
     return same
 
@@ -856,7 +892,7 @@ def capture_collectives():
 
 
 def program_pair(route: str, batch: int, dev, shard: str,
-                 tiny: bool = False, seed: int = SEED) -> dict:
+                 tiny: bool = False, seed: int = SEED, mesh=None) -> dict:
     """One training program of ``cli.train`` under this process's group,
     from one start on two states: replayed (``route`` 'scan':
     ``make_scan_step``, ``DDP_SCAN_STEPS`` steps a graph, synthetic
@@ -874,19 +910,26 @@ def program_pair(route: str, batch: int, dev, shard: str,
     differences between the two states, and, for the shard route, the
     kernels of one replay (NCCL's among them: :func:`replay_collectives`)
     and, under several processes, each all-reduce size eager against
-    captured (:func:`collective_sweep`)."""
+    captured (:func:`collective_sweep`).  With a process ``mesh`` the
+    states are placed on it (:func:`replica_state`), the draws and
+    records follow the data coordinate (the ranks of a model group take
+    the same batch), the images/s count the data axis's batches, and
+    there is no sweep."""
     import itertools
 
     from esa_pose_estimation_tpu_torch.data import pipeline as dp
     from esa_pose_estimation_tpu_torch.data import synthetic
     from esa_pose_estimation_tpu_torch.parallel import distributed as pdist
+    from esa_pose_estimation_tpu_torch.parallel.mesh import split_convs
     from esa_pose_estimation_tpu_torch.train import state as tstate
     from esa_pose_estimation_tpu_torch.utils.seeding import generator
     rank, world = pdist.rank(), pdist.world_size()
+    if mesh is not None:            # the data axis's slice and count
+        rank, world = mesh.coordinate[0], mesh.shape['data']
     cuda = torch.device(dev).type == 'cuda'
     crop = 32 if tiny else 128
     pts = synthetic.spacecraft_points(device=dev, n=6 if tiny else 30)
-    a, b = replica_state(dev, tiny), replica_state(dev, tiny)
+    a, b = replica_state(dev, tiny, mesh), replica_state(dev, tiny, mesh)
 
     def eager_program(st, loss_fn, n):
         if cuda:
@@ -963,7 +1006,8 @@ def program_pair(route: str, batch: int, dev, shard: str,
         if i:
             eager_ms.append(ta)
             replay_ms.append(tb)
-    row = {'route': route, 'batch_per_card': batch, 'processes': world,
+    row = {'route': route, 'batch_per_card': batch,
+           'processes': pdist.world_size(), 'data_shards': world,
            'steps': DDP_CALLS[route] * n_inner, 'steps_per_graph': n_inner,
            'first_loss': float(lb[0]), 'finite': bool(torch.isfinite(
                lb).all()), 'capture': captured}
@@ -993,11 +1037,12 @@ def program_pair(route: str, batch: int, dev, shard: str,
                eager_runs=eager_ms, replay_runs=replay_ms)
     if cuda and route == 'shard':
         row['replay'] = replay_collectives(lambda: run_b(0), dev)
-        if world > 1:
+        if world > 1 and mesh is None:
             row['all_reduce_sizes'] = collective_sweep(b, dev)
     flags = [int(losses_equal), int(state_equal), int(second),
              int(replicas_equal(a)), int(replicas_equal(b))]
     ranks = _ranks(flags, dev)
+    row['split_convs'] = len(split_convs(b.model))
     row.update(losses_equal=losses_equal, state_equal=state_equal,
                second_graph_equal=second, ranks=ranks,
                all_equal=all(all(r) for r in ranks))
@@ -1109,6 +1154,242 @@ def ddp_experiment(dev, root: str, tiny: bool = False,
     if failed:
         raise AssertionError(f'--ddp: {failed} failed (rows above)')
     return results
+
+# --model-axis: the meshes of four processes, and the tolerances of split
+# steps against unsplit ones on the same global batches, both computing in
+# f32 (TF32 off): in bf16 the two round differently, and at r5's optimum,
+# where many gradients are noise, Adam moves those elements lr either way
+# (the CPU rehearsal of 23a: the first bf16 loss 6.5e-3 apart, the third
+# 0.12).  The first step's (from equal parameters) are chip_smoke 12a's
+# card-against-CPU f32 tolerances; the later ones tests/test_torch_train's
+# three-step loss tolerance, ten times its gradient norm's, and Adam's
+# bound, 2 lr a step: an element near zero gradient may move lr either way.
+MODEL_AXIS_PER_SHARD = 32
+MODEL_AXIS_STEPS = 3
+FIRST_LOSS_RTOL, FIRST_NORM_RTOL, FIRST_STAT_TOL = 1e-5, 1e-4, 1e-5
+STEP_LOSS_RTOL, STEP_NORM_RTOL, STEP_STAT_TOL = 1e-4, 1e-3, 1e-4
+STEP_PARAM_LRS = 2
+
+
+def model_axis_meshes(world: int) -> list[tuple[int, int]]:
+    """(world, 1), (world / 2, 2) and (1, world), the ones that exist."""
+    return list(dict.fromkeys((world // m, m) for m in (1, 2, world)
+                              if world % m == 0))
+
+
+def step_batches(dev, d: int, per: int, tiny: bool, seed: int) -> list:
+    """Data slice ``d`` of :data:`MODEL_AXIS_STEPS` synthetic batches,
+    drawn by data coordinate, so every mesh of the same data extent sees
+    the same global batches."""
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.utils.seeding import generator
+    pts = synthetic.spacecraft_points(device=dev, n=6 if tiny else 30)
+    return [synthetic.make_batch(generator(dev, seed, 7, step, d), per, pts,
+                                 crop_size=32 if tiny else 128)
+            for step in range(MODEL_AXIS_STEPS)]
+
+
+def state_differences(got: nn.Module, want: nn.Module, lr: float,
+                      stat_tol: float) -> tuple[float, float]:
+    """The largest parameter difference between two models in lr units,
+    and the running statistics' largest difference beyond ``stat_tol``
+    relative (``allclose`` at rtol = atol = ``stat_tol`` holds when it is
+    at most ``stat_tol``)."""
+    sd_g, sd_w = got.state_dict(), want.state_dict()
+    params = stats = 0.0
+    for k, w in sd_w.items():
+        diff = (sd_g[k].float() - w.float()).abs()
+        if 'running' in k:
+            stats = max(stats, float((diff - stat_tol * w.abs()).max()))
+        else:
+            params = max(params, float(diff.max()) / lr)
+    return params, stats
+
+
+def step_differences(first, whole, want_first, want, metrics_got,
+                     metrics_want) -> dict:
+    """How far split steps lie from unsplit ones: the loss's and the
+    norm's relative differences at each step, the parameters (in lr) and
+    statistics after the first step (``first``, ``want_first``) and after
+    the last (``whole``, ``want``), and whether all are within the
+    tolerances above."""
+    lr = whole.schedule(0)
+    loss = [abs(a['loss'] / b['loss'] - 1.0)
+            for a, b in zip(metrics_got, metrics_want)]
+    norm = [abs(a['grad_norm'] / b['grad_norm'] - 1.0)
+            for a, b in zip(metrics_got, metrics_want)]
+    p1, s1 = state_differences(first, want_first, lr, FIRST_STAT_TOL)
+    p3, s3 = state_differences(whole.model, want.model, lr, STEP_STAT_TOL)
+    steps = len(metrics_got)
+    return {'loss_rel': loss, 'grad_norm_rel': norm,
+            'first_param_lrs': p1, 'first_stat_excess': s1,
+            'param_lrs': p3, 'stat_excess': s3,
+            'within': (loss[0] <= FIRST_LOSS_RTOL
+                       and norm[0] <= FIRST_NORM_RTOL
+                       and max(loss) <= STEP_LOSS_RTOL
+                       and max(norm) <= STEP_NORM_RTOL
+                       and p1 <= STEP_PARAM_LRS and s1 <= FIRST_STAT_TOL
+                       and p3 <= STEP_PARAM_LRS * steps
+                       and s3 <= STEP_STAT_TOL)}
+
+
+def split_steps(st, batches):
+    """``train_step`` on each of ``batches``: the metrics as floats, the
+    whole model after the first step and the whole state after the last
+    (``parallel/mesh.gather_state``, a copy of an unsplit state).  Every
+    rank of a model group calls it."""
+    from esa_pose_estimation_tpu_torch.parallel.mesh import gather_state
+    from esa_pose_estimation_tpu_torch.train import state as tstate
+    metrics, first = [], None
+    for b in batches:
+        metrics.append({k: float(v) for k, v in tstate.train_step(
+            st, b).items()})
+        if first is None:
+            first = gather_state(st).model
+    return metrics, first, gather_state(st)
+
+
+def reference_pair(shape: tuple[int, int], dev, tiny: bool = False,
+                   per: int = MODEL_AXIS_PER_SHARD, seed: int = SEED
+                   ) -> dict | None:
+    """:data:`MODEL_AXIS_STEPS` eager ``train_step`` calls, computing in
+    f32, on a mesh of ``shape`` over every rank and on its unsplit
+    reference, (n_data, 1) on the first n_data ranks (one card for
+    (1, n)), from r5 on the same global batches: the split states
+    gathered (``gather_state``, every rank) and held to the reference's
+    on rank 0 (:func:`step_differences`).  Returns rank 0's row, with the
+    gathered state under 'gathered' (None elsewhere)."""
+    from esa_pose_estimation_tpu_torch.parallel import distributed as pdist
+    from esa_pose_estimation_tpu_torch.parallel import mesh as mesh_mod
+    n_data, n_model = shape
+    mesh = mesh_mod.make_process_mesh(n_data, n_model)
+    ref_mesh = mesh_mod.make_process_mesh(n_data, 1,
+                                          ranks=list(range(n_data)))
+
+    def train(m):
+        return split_steps(replica_state(dev, tiny, m, torch.float32),
+                           step_batches(dev, m.coordinate[0], per, tiny,
+                                        seed))
+    got, first, whole = train(mesh)
+    ref = train(ref_mesh) if ref_mesh is not None else None
+    _sync(dev)
+    pdist.barrier()
+    if pdist.rank():
+        return None
+    row = {'mesh': list(shape), 'reference': [n_data, 1],
+           'steps': MODEL_AXIS_STEPS, 'batch_per_shard': per,
+           'losses': [x['loss'] for x in got],
+           'reference_losses': [x['loss'] for x in ref[0]],
+           'grad_norms': [x['grad_norm'] for x in got],
+           'reference_grad_norms': [x['grad_norm'] for x in ref[0]]}
+    row.update(step_differences(first, whole, ref[1], ref[2], got, ref[0]))
+    row['gathered'] = whole
+    return row
+
+
+def held_out_median(model, pts) -> dict:
+    """Phase 10's 128 held-out frames (:func:`held_out_speed`'s) served by
+    ``pipeline.make_jitted_pipeline`` in 4 batches of 32: the SPEED
+    median."""
+    import statistics
+
+    from esa_pose_estimation_tpu_torch import pipeline
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.eval.speed_score import (
+        speed_score_from_matrices,
+    )
+    dev = next(model.parameters()).device
+    fn = pipeline.make_jitted_pipeline(model, pts, **SHARDED_KW)
+    gen = torch.Generator(device=dev).manual_seed(991)
+    scores = []
+    for i in range(4):
+        s = synthetic.make_sample(torch.Generator(device=dev).manual_seed(
+            991 * 100_003 + i), pts, 32)
+        out = fn(s.image, s.bbox, gen)
+        scores += speed_score_from_matrices(out.R, out.trans, s.quat,
+                                            s.trans).speed.cpu().tolist()
+    return {'frames': len(scores), 'median': statistics.median(scores),
+            'mean': statistics.fmean(scores), 'worst': max(scores)}
+
+
+def serving_form(state_dict, dev) -> nn.Module:
+    """A trained ``hrnet_esa`` state dict as serving holds it: the bf16
+    model in eval mode, its parameters stored in bf16
+    (``store_in_compute_dtype``)."""
+    from esa_pose_estimation_tpu_torch.models.layers import (
+        store_in_compute_dtype,
+    )
+    model = r5_masters(dev)
+    model.load_state_dict(state_dict)
+    return store_in_compute_dtype(model).eval()
+
+
+def model_axis_experiment(dev, root: str, tiny: bool = False) -> dict:
+    """The ``--model-axis`` mode (module docstring) in this process's
+    group.  Rank 0 prints each row; every rank raises if a check
+    failed."""
+    from esa_pose_estimation_tpu_torch.data import shards, synthetic
+    from esa_pose_estimation_tpu_torch.parallel import distributed as pdist
+    from esa_pose_estimation_tpu_torch.parallel import mesh as mesh_mod
+    rank, world = pdist.rank(), pdist.world_size()
+    cuda = torch.device(dev).type == 'cuda'
+    per = 2 if tiny else MODEL_AXIS_PER_SHARD
+    shard = os.path.join(root, 'train.spd')
+    if rank == 0:
+        os.makedirs(root, exist_ok=True)
+        shards.write_synthetic_shard(
+            shard, 64 if tiny else DDP_SHARD_RECORDS,
+            **({'height': 240, 'width': 384, 'n_kp': 6} if tiny else {}),
+            device=dev)
+    pdist.barrier()
+    results: dict = {'processes': world}
+    failed = []
+
+    def report(key, row):
+        results[key] = row
+        if rank == 0:
+            print(json.dumps({key: row}), flush=True)
+    for shape in model_axis_meshes(world):
+        mesh = mesh_mod.make_process_mesh(*shape)
+        tag = f'{shape[0]}x{shape[1]}'
+        for route in ('scan', 'shard'):
+            row = program_pair(route, per, dev, shard, tiny, mesh=mesh)
+            if cuda:
+                row['peak_gib_by_rank'] = [r[0] / 1024 for r in _ranks(
+                    [int(row['peak_gib'] * 1024)], dev)]
+                torch.cuda.empty_cache()
+            report(f'{route}_{tag}', row)
+            nccl = row.get('replay', {'nccl_kernels': 1})['nccl_kernels']
+            if not (row['all_equal'] and row['finite'] and (
+                    not cuda or (row['capture']['collective_calls'] > 0
+                                 and nccl > 0))):
+                failed.append(f'{route}_{tag}')
+    pts = synthetic.spacecraft_points(device=dev, n=6 if tiny else 30)
+    for shape in model_axis_meshes(world):
+        if shape[1] == 1:
+            continue
+        row = reference_pair(shape, dev, tiny, per)
+        ok = [True]
+        if row is not None:
+            whole = row.pop('gathered')
+            if not tiny:
+                row['held_out'] = held_out_median(serving_form(
+                    whole.model.state_dict(), dev), pts)
+                row['within'] &= row['held_out']['median'] <= 0.01
+            ok = [row['within']]
+            report(f'reference_{shape[0]}x{shape[1]}', row)
+            del whole
+        if cuda:
+            torch.cuda.empty_cache()
+        if not _ranks([int(ok[0])], dev)[0][0]:
+            failed.append(f'reference_{shape[0]}x{shape[1]}')
+    pdist.barrier()
+    if rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    if failed:
+        raise AssertionError(f'--model-axis: {failed} failed (rows above)')
+    return results
+
 
 
 # --sharded: one serving batch over the data axis of this process's cards,
@@ -1486,6 +1767,28 @@ def ddp_main(args) -> dict:
             pdist.shutdown()
 
 
+def model_axis_main(args) -> dict:
+    """``--model-axis``: join the group the arguments name, run
+    :func:`model_axis_experiment`, leave the group."""
+    from esa_pose_estimation_tpu_torch.parallel import distributed as pdist
+    from esa_pose_estimation_tpu_torch.utils.artifact import target_device
+    dev = target_device(args.device, 'mfu_experiments --model-axis')
+    joined = pdist.initialize(args.coordinator, args.num_processes,
+                              args.process_id, device=dev)
+    try:
+        if dev.type == 'cuda':
+            dev = torch.device('cuda', torch.cuda.current_device())
+        results = model_axis_experiment(dev, args.workdir, args.tiny)
+        results['device'] = (torch.cuda.get_device_name(dev)
+                             if dev.type == 'cuda' else 'cpu')
+        if pdist.is_primary():
+            print(json.dumps(results))
+        return results
+    finally:
+        if joined:
+            pdist.shutdown()
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     mode = ap.add_mutually_exclusive_group()
@@ -1498,8 +1801,10 @@ def main(argv=None) -> dict:
     mode.add_argument('--determinism', action='store_true')
     mode.add_argument('--ddp', action='store_true')
     mode.add_argument('--sharded', action='store_true')
-    ddp = ap.add_argument_group('--ddp', 'several processes, one per card '
-                                '(none: one card alone)')
+    mode.add_argument('--model-axis', action='store_true')
+    ddp = ap.add_argument_group('--ddp and --model-axis', 'several '
+                                'processes, one per card (--ddp: none, one '
+                                'card alone)')
     ddp.add_argument('--coordinator', default=None)
     ddp.add_argument('--num-processes', type=int, default=None)
     ddp.add_argument('--process-id', type=int, default=None)
@@ -1512,6 +1817,8 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.ddp:
         return ddp_main(args)
+    if args.model_axis:
+        return model_axis_main(args)
     _require_cuda()
     if args.chain:
         results = chain_experiment()

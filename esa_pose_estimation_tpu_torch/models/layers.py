@@ -34,6 +34,10 @@ from esa_pose_estimation_tpu_torch.experimental.int8_head import (
     int8_conv,
     quantize_weights_per_channel,
 )
+from esa_pose_estimation_tpu_torch.parallel.tensor_parallel import (
+    copy_to_model,
+    gather_from_model,
+)
 
 
 def _interp_matrix(samples: torch.Tensor, in_size: int) -> torch.Tensor:
@@ -123,14 +127,18 @@ def _in_group() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def _global_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-channel E[x] and E[x^2] of NCHW ``x`` over the batches of every
-    rank: one autograd all-reduce of the sums and the element count."""
+def _global_moments(x: torch.Tensor, group=None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel E[x] and E[x^2] of NCHW ``x`` over the batches of the
+    ranks of ``group`` (None: every rank): one autograd all-reduce of the
+    sums and the element count."""
+    import torch.distributed as dist
     from torch.distributed.nn.functional import all_reduce
     c = x.shape[1]
     stats = torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)),
                        x.new_full((1,), float(x.numel() // c))])
-    stats = all_reduce(stats)
+    stats = all_reduce(stats, group=dist.group.WORLD if group is None
+                       else group)
     return stats[:c] / stats[2 * c], stats[c:2 * c] / stats[2 * c]
 
 
@@ -152,9 +160,15 @@ class BatchNorm(nn.Module):
     the global statistics, and the rule above applies to them.  Every rank
     then holds the same running statistics, and a one-rank group runs the
     collectives that several ranks run.  Without a group the means are
-    taken locally.
+    taken locally.  Under a mesh with a ``model`` axis the statistics are
+    the data axis's: ``data_axis`` (set by ``parallel/mesh.shard_state``)
+    names the group of ranks that hold other slices of the batch, and the
+    sums run over it alone (over the whole group each data slice would
+    count once per model rank).
     (``nn.SyncBatchNorm`` also keeps the unbiased variance.)
     """
+
+    data_axis = None        # a parallel.tensor_parallel.Axis, or None
 
     def __init__(self, channels: int, eps: float = 1e-5,
                  momentum: float = 0.99):
@@ -170,7 +184,9 @@ class BatchNorm(nn.Module):
         x = x.to(torch.float32)
         if self.training:
             if _in_group():
-                mean, mean_sq = _global_moments(x)
+                mean, mean_sq = _global_moments(
+                    x, None if self.data_axis is None
+                    else self.data_axis.group)
             else:
                 mean, mean_sq = x.mean(dim=(0, 2, 3)), (x * x).mean(
                     dim=(0, 2, 3))
@@ -192,7 +208,16 @@ class Conv(nn.Conv2d):
     Padding is ``dilation * (k//2)`` on both sides, the stride-2 convs
     included (Flax's ``padding=dilation`` of the dilated ResNet-8s convs).
     A serving model may store the parameters in ``dtype`` already
-    (:func:`store_in_compute_dtype`); the cast is then a no-op."""
+    (:func:`store_in_compute_dtype`); the cast is then a no-op.
+
+    Split over the ``model`` axis of a process mesh
+    (``parallel/mesh.shard_state``), ``model_axis`` holds this rank's
+    place and the weight holds its rows of the output channels: the
+    input's gradient is summed over the axis and the output slices are
+    gathered (``parallel/tensor_parallel``); a bias stays whole and is
+    added after the gather."""
+
+    model_axis = None       # a parallel.tensor_parallel.Axis, or None
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  bias: bool = False, dtype=torch.float32, dilation: int = 1):
@@ -204,8 +229,14 @@ class Conv(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride,
-                        self.padding, self.dilation)
+        axis = self.model_axis
+        if axis is None:
+            return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride,
+                            self.padding, self.dilation)
+        y = gather_from_model(F.conv2d(
+            copy_to_model(x, axis).to(dt), self.weight.to(dt), None,
+            self.stride, self.padding, self.dilation), axis)
+        return y if bias is None else y + bias[:, None, None]
 
 
 @torch.no_grad()

@@ -94,18 +94,20 @@ def prepare_nccl_for_graphs() -> None:
     os.environ['TORCH_NCCL_ASYNC_ERROR_HANDLING'] = '0'
 
 
-def global_mean(x: torch.Tensor) -> torch.Tensor:
-    """The mean of ``x`` over the ranks of the group (``x`` itself without
-    one): a sum by one ``all_reduce`` of a copy, then a division by the
-    group's size, so a one-rank group gives ``x``'s bits.  A step's loss
-    through it is the global batch's loss when every rank's batch has the
-    same size (the mean of equal-sized means).  It draws nothing and reads
-    nothing back: a captured step holds the collective."""
+def global_mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean of ``x`` over the ranks of ``group``, the whole group by
+    default (``x`` itself without one): a sum by one ``all_reduce`` of a
+    copy, then a division by the group's size, so a one-rank group gives
+    ``x``'s bits.  A step's loss through it is the global batch's loss
+    when every rank's batch has the same size (the mean of equal-sized
+    means); under a ``model`` axis ``group`` is the data axis's, whose
+    ranks hold the batch's slices.  It draws nothing and reads nothing
+    back: a captured step holds the collective."""
     if not dist.is_initialized():
         return x
     out = x.detach().clone()
-    dist.all_reduce(out)
-    return out.div_(dist.get_world_size())
+    dist.all_reduce(out, group=group)
+    return out.div_(dist.get_world_size(group))
 
 
 def rank() -> int:

@@ -18,6 +18,7 @@ import os
 
 import torch
 
+from esa_pose_estimation_tpu_torch.parallel.mesh import split_convs
 from esa_pose_estimation_tpu_torch.train.state import TrainState
 
 LAST = 'last'
@@ -84,7 +85,17 @@ class CheckpointManager:
         renamed in, the old one removed.  :meth:`restore` falls back to
         ``<name>.old`` inside that window, so a preemption mid-save cannot
         restart training from epoch 0.
+
+        A state split over a ``model`` axis raises: its tensors are this
+        rank's slices, and a checkpoint holds whole tensors only.  Save
+        ``parallel/mesh.gather_state(state)``, which every rank of the
+        model group makes.
         """
+        if split_convs(state.model):
+            raise ValueError(
+                f'checkpoint {name!r}: the state is split over a model axis;'
+                f' save parallel/mesh.gather_state(state) (every rank of '
+                f'the model group gathers) in its place')
         os.makedirs(self.directory, exist_ok=True)
         payload = {
             'model': state.model.state_dict(),

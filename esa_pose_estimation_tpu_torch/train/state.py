@@ -16,7 +16,11 @@ one CUDA graph on the card, one replay per call, for one process or
 several; :func:`make_scan_step` is ``make_sharded_scan_step`` on it.
 Under several processes the graph holds DDP's gradient all-reduces, the
 BatchNorm statistics' all-reduces and the loss's: the JAX mesh's sharded
-steps, one process per card.
+steps, one process per card.  A state placed on a process mesh with a
+``model`` axis (``parallel/mesh.shard_state``) runs its split convs'
+collectives in the same steps and graphs, and its data-axis reductions
+over the data group: ``make_sharded_train_step(mesh, state=)`` and
+``make_sharded_scan_step(..., state=)``.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import contextlib
 import math
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
@@ -96,7 +101,9 @@ class TrainState:
     ``train_model`` is what a train step runs forward: the model itself, or
     its ``DistributedDataParallel`` wrapper when several processes train
     it (``parallel/mesh.wrap_data_parallel``).  Checkpoints hold ``model``,
-    so their names do not depend on the wrapper."""
+    so their names do not depend on the wrapper.  ``mesh`` is the
+    ``parallel/mesh.ProcessMesh`` that ``shard_state`` placed the state
+    on, or None."""
 
     def __init__(self, model: nn.Module,
                  optimizer: torch.optim.Optimizer | None = None,
@@ -107,6 +114,7 @@ class TrainState:
         self.optimizer = optimizer
         self.schedule = schedule
         self.step = step
+        self.mesh = None
 
 
 @contextlib.contextmanager
@@ -143,6 +151,27 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
+def _data_group(state: TrainState):
+    """The group a step's data-axis reductions run over (None: all)."""
+    return None if state.mesh is None else state.mesh.data.group
+
+
+def grad_norm(state: TrainState) -> torch.Tensor:
+    """The global norm of the model's gradients, ``optax.global_norm`` of
+    JAX's global gradients: under a ``model`` axis the split weights'
+    squares summed over the model group (one all-reduce) added to those
+    of the whole ones."""
+    params = [p for p in state.model.parameters() if p.grad is not None]
+    if state.mesh is None or state.mesh.model.size == 1:
+        return global_norm([p.grad for p in params])
+    split = {id(m.weight) for m in mesh_mod.split_convs(state.model)}
+    sq = [torch.stack(torch._foreach_norm(
+        [p.grad for p in params if (id(p) in split) == part])
+    ).square().sum() for part in (True, False)]
+    dist.all_reduce(sq[0], group=state.mesh.model.group)
+    return torch.sqrt(sq[0] + sq[1])
+
+
 def train_step(state: TrainState, batch: dict[str, torch.Tensor],
                loss_w: float = 10.0) -> dict[str, torch.Tensor]:
     """One optimization step on batch {'image': (B, H, W, C), 'heatmaps':
@@ -164,23 +193,23 @@ def optimize(state: TrainState,
     forward and its scalar loss: the backward (``DistributedDataParallel``
     averages the gradients over the processes inside it), the gradients'
     global norm, the update at the schedule's rate for this step.  Returns
-    the loss, as the mean over the processes (``global_mean``), and the
-    norm as device tensors.  It runs under :func:`deterministic_cudnn`."""
+    the loss, as the mean over the processes of the data axis
+    (``global_mean``), and the norm (:func:`grad_norm`) as device tensors.
+    It runs under :func:`deterministic_cudnn`."""
     model, opt = state.train_model, state.optimizer
     model.train()
     with deterministic_cudnn():
         loss = loss_fn(model)
         opt.zero_grad(set_to_none=True)
         loss.backward()
-    grad_norm = global_norm([p.grad for p in model.parameters()
-                             if p.grad is not None])
+    norm = grad_norm(state)
     lr = state.schedule(state.step)
     for group in opt.param_groups:
         group['lr'] = lr
     opt.step()
     state.step += 1
-    return {'loss': global_mean(loss.detach()),
-            'grad_norm': grad_norm.detach()}
+    return {'loss': global_mean(loss.detach(), _data_group(state)),
+            'grad_norm': norm.detach()}
 
 
 class BatchFn(NamedTuple):
@@ -340,7 +369,7 @@ class StepGraph:
         opt.zero_grad(set_to_none=False)
         loss.backward()
         opt.step()
-        return global_mean(loss.detach())
+        return global_mean(loss.detach(), _data_group(self.state))
 
     def _rates(self) -> None:
         st = self.state

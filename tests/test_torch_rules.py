@@ -62,7 +62,8 @@ def test_port_imports_no_jax():
             'obs/profiling.py', 'utils/device_probe.py',
             'utils/render_driver.py', 'data/db_builder.py', 'models/vgg.py',
             'ops/pose_nms.py', 'ops/transforms.py', 'utils/graphs.py',
-            'pipeline.py', 'cli/mfu_experiments.py'} <= names
+            'pipeline.py', 'cli/mfu_experiments.py',
+            'parallel/tensor_parallel.py'} <= names
     bad = {str(f.relative_to(ROOT)): sorted(m for m in _imported_modules(f)
                                             if _forbidden(m))
            for f in files}
@@ -304,6 +305,7 @@ def test_commands_ask_for_the_card_by_default(monkeypatch, tmp_path):
     from esa_pose_estimation_tpu_torch.cli import (
         eval_synthetic,
         evaluate,
+        mfu_experiments,
         submit,
         train,
         train_detector,
@@ -320,12 +322,15 @@ def test_commands_ask_for_the_card_by_default(monkeypatch, tmp_path):
             (evaluate.main, art + ['--test-pkl', 'none.pkl']),
             (submit.main, art + ['--test-pkl', 'none.pkl']),
             (artifact.main, ['--workdir', str(tmp_path), '--out',
-                             str(tmp_path / 'x.npz')])):
+                             str(tmp_path / 'x.npz')]),
+            (mfu_experiments.main, ['--model-axis', '--workdir',
+                                    str(tmp_path / 'm')])):
         with pytest.raises(RuntimeError, match='cuda requested'):
             main(argv)
     assert not (tmp_path / 'r' / 'net_esa').exists()
     assert not (tmp_path / 'd').exists()
     assert not (tmp_path / 'l').exists()
+    assert not (tmp_path / 'm').exists()
 
 
 def test_native_loader_builds_only_the_checkout_source(monkeypatch,

@@ -137,8 +137,8 @@ def test_make_mesh_rejects_what_jax_rejects():
             jax_make_mesh(**kw)
         assert str(port.value) == str(jax_err.value), kw
     assert str(port.value) == 'n_model=9 with 8 devices'
-    with pytest.raises(NotImplementedError, match='ROADMAP.md section 1, '
-                                                  'item 1'):
+    with pytest.raises(NotImplementedError, match='spans processes, one '
+                                                  'per card'):
         tmesh.make_mesh(n_data=2, n_model=2, devices=eight[:4])
     assert jax_make_mesh(n_data=2, n_model=2,
                          devices=jax.devices()[:4]).devices.shape == (2, 2)
