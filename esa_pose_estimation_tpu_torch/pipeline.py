@@ -14,10 +14,14 @@ Torch port of the JAX package's ``pipeline.py`` (``infer_poses``,
   7. quaternion output            -- demo.py:301-303
 
 Every stage follows the device of its inputs and runs batched with no host
-read-back.  Each stage runs inside a ``torch.profiler.record_function``
-range (``detect``, ``crop``, ``hrnet``, ``decode``, ``ransac_epnp``,
-``refine``) so a profiler trace attributes time per stage; with no
-profiler running a range costs a few microseconds of host time.
+read-back.  Each stage runs inside ``obs/profiling.stage`` (``detect``,
+``crop``, ``hrnet``, ``decode``, ``ransac_epnp``, ``refine``): in a CUDA
+graph captured by ``utils/graphs`` (:func:`make_jitted_pipeline`) it is a
+pair of device stamps that every replay writes into the process's
+recorder, so each call's device time per stage is kept with no profiler
+running (``obs/profiling.Recorder``); run eagerly it is a
+``record_function`` range that a profiler trace shows (on the CPU, inside
+a graph's call, host stamps too).
 """
 
 from __future__ import annotations
@@ -26,11 +30,11 @@ import inspect
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from esa_pose_estimation_tpu_torch.core import camera
 from esa_pose_estimation_tpu_torch.core.camera import rotmat_to_quat
 from esa_pose_estimation_tpu_torch.models.detector import decode_detections
+from esa_pose_estimation_tpu_torch.obs.profiling import stage
 from esa_pose_estimation_tpu_torch.ops import crop as crop_ops
 from esa_pose_estimation_tpu_torch.ops import peak as peak_ops
 from esa_pose_estimation_tpu_torch.ops import pnp as pnp_mod
@@ -82,7 +86,7 @@ def infer_poses(model, frames: torch.Tensor, bboxes: torch.Tensor,
     """
     if crop_rule not in ('train', 'val'):
         raise ValueError(f'unknown crop_rule {crop_rule!r}')
-    with record_function('crop'):
+    with stage('crop'):
         crops, rates, origins = crop_ops.crop_resize(
             frames, bboxes, crop_size, img_w=frames.shape[2],
             img_h=frames.shape[1], force_square=crop_rule == 'train')
@@ -124,7 +128,7 @@ def infer_poses_from_crops(model, crops: torch.Tensor, rates: torch.Tensor,
     if K is None:
         K = camera.speed_k(torch.float32, dev)
     points_3d = points_3d.to(device=dev, dtype=torch.float32)
-    with record_function('hrnet'):
+    with stage('hrnet'):
         x = crop_ops.normalize(crops, norm_mean, norm_std)[..., None]
         hm = model(x)                                      # (B, S, S, K)
         if flip_tta:
@@ -133,20 +137,20 @@ def infer_poses_from_crops(model, crops: torch.Tensor, rates: torch.Tensor,
             # swap is the identity)
             hm_f = model(torch.flip(x, dims=(2,)))
             hm = (hm + torch.flip(hm_f, dims=(2,))) * 0.5
-    with record_function('decode'):
+    with stage('decode'):
         coords, maxvals = peak_ops.decode_heatmaps_auto_nhwc(hm)
         sel = peak_ops.select_confident(maxvals, conf_threshold,
                                         min_count=min_keypoints)
         uncropped = (coords / rates[:, None, None]
                      + origins[:, None, :].to(torch.float32))
     p3 = points_3d.expand((crops.shape[0],) + points_3d.shape)
-    with record_function('ransac_epnp'):
+    with stage('ransac_epnp'):
         init = pnp_mod.ransac_epnp(p3, uncropped, K, generator, valid=sel,
                                    n_hypotheses=n_hypotheses,
                                    sample_size=sample_size,
                                    lm_iters=lm_iters, masks=ransac_masks,
                                    uniforms=ransac_uniforms)
-    with record_function('refine'):
+    with stage('refine'):
         # final confidence-weighted refinement over the RANSAC inliers,
         # falling back to the selection when the inlier set is degenerate
         keep = init.inliers & sel
@@ -176,7 +180,8 @@ def make_pipeline(model, points_3d: torch.Tensor,
     """Returns fn(frames, bboxes, generator=None) -> PoseOutput:
     :func:`infer_poses` with the model, the keypoint model and the serving
     keywords bound, run eagerly (a profiler sees its stage ranges, which
-    a graph's replay does not emit)."""
+    a graph's replay does not emit: there the recorder's stamps time
+    them)."""
     def run(frames, bboxes, generator=None):
         return infer_poses(model, frames, bboxes, points_3d, generator, K=K,
                            **kwargs)
@@ -294,7 +299,7 @@ def detect_frames(detector, frames: torch.Tensor, detector_stride: int = 16,
     ``box_expand`` grows each box about its center before the frame clip
     (a margin for a tight box; the crop adds the reference's x1.05).
     """
-    with record_function('detect'):
+    with stage('detect'):
         ds = downsample_frames(frames, detector_downscale)
         det_out = detector(ds[..., None])
         boxes, scores, valid = decode_detections(det_out, detector_stride,

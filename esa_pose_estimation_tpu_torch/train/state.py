@@ -35,6 +35,8 @@ import torch.distributed as dist
 from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
+from esa_pose_estimation_tpu_torch.obs import profiling
+from esa_pose_estimation_tpu_torch.obs.profiling import stage
 from esa_pose_estimation_tpu_torch.parallel import mesh as mesh_mod
 from esa_pose_estimation_tpu_torch.parallel.distributed import global_mean
 from esa_pose_estimation_tpu_torch.train.loss import weighted_heatmap_loss
@@ -195,18 +197,22 @@ def optimize(state: TrainState,
     global norm, the update at the schedule's rate for this step.  Returns
     the loss, as the mean over the processes of the data axis
     (``global_mean``), and the norm (:func:`grad_norm`) as device tensors.
-    It runs under :func:`deterministic_cudnn`."""
+    It runs under :func:`deterministic_cudnn`, in the stages ``forward``,
+    ``backward`` and ``optimizer`` (``obs/profiling.stage``)."""
     model, opt = state.train_model, state.optimizer
     model.train()
     with deterministic_cudnn():
-        loss = loss_fn(model)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-    norm = grad_norm(state)
-    lr = state.schedule(state.step)
-    for group in opt.param_groups:
-        group['lr'] = lr
-    opt.step()
+        with stage('forward'):
+            loss = loss_fn(model)
+        with stage('backward'):
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+    with stage('optimizer'):
+        norm = grad_norm(state)
+        lr = state.schedule(state.step)
+        for group in opt.param_groups:
+            group['lr'] = lr
+        opt.step()
     state.step += 1
     return {'loss': global_mean(loss.detach(), _data_group(state)),
             'grad_norm': norm.detach()}
@@ -333,13 +339,19 @@ def make_train_steps(state: TrainState, loss_fn: StepLoss, n_inner: int = 1
     gradients and the optimizer where they lie, and each replay checks
     that they were not replaced (``utils/graphs.check_pointers``).  The
     losses are the means over the ranks.  On the CPU the same steps run
-    eagerly (:func:`run_steps`).
+    eagerly (:func:`run_steps`).  Each call is one record of the process's
+    recorder (``obs/profiling.Recorder``), as a ``utils/graphs.Graphed``
+    call is, with each step's stages ``forward``, ``backward`` and
+    ``optimizer``.
     """
     if n_inner < 1:
         raise ValueError(f'make_train_steps: n_inner={n_inner} < 1')
     device = next(state.model.parameters()).device
     if device.type != 'cuda':
-        return lambda inputs: run_steps(state, loss_fn, inputs)
+        # recorded as the graph's calls are, the steps' stages host-stamped
+        graph = profiling.recorder().new_graph()
+        return lambda inputs: profiling.recorder().eager(
+            graph, device, lambda: run_steps(state, loss_fn, inputs))
     return StepGraph(state, loss_fn, n_inner, device)
 
 
@@ -362,13 +374,18 @@ class StepGraph:
     def _step(self, j: int) -> torch.Tensor:
         """One step as the graph holds it: the gradients stay allocated
         (zeroed, not dropped) and Adam reads its rate from the tensor in
-        its groups.  Returns the loss, the mean over the ranks."""
+        its groups; the stages ``forward``, ``backward`` and ``optimizer``
+        are stamped in the capture.  Returns the loss, the mean over the
+        ranks."""
         model, opt = self.state.train_model, self.state.optimizer
         self.lr.copy_(self.lrs[j])
-        loss = self.loss_fn(model, self.inputs[j])
-        opt.zero_grad(set_to_none=False)
-        loss.backward()
-        opt.step()
+        with stage('forward'):
+            loss = self.loss_fn(model, self.inputs[j])
+        with stage('backward'):
+            opt.zero_grad(set_to_none=False)
+            loss.backward()
+        with stage('optimizer'):
+            opt.step()
         return global_mean(loss.detach(), _data_group(self.state))
 
     def _rates(self) -> None:
@@ -404,32 +421,45 @@ class StepGraph:
         if len(inputs) != n:
             raise ValueError(f'StepGraph: {len(inputs)} inputs for {n} '
                              f'steps')
-        key = graphs.graph_key(tuple(inputs), {})
-        self._rates()
-        if self.capture is None:
-            self.inputs, self.key = graphs.tree_map(torch.clone, inputs), key
-            # what the graph reads in place, by a closure that does not
-            # hold self: the capture must not keep its own graph alive
-            model_reads = graphs.tensor_reader([st.model], grads=True)
-            opt = st.optimizer
-            with torch.cuda.device(self.device), deterministic_cudnn():
-                _warm_up_restored(st, lambda: self._step(0), self.device,
-                                  warm_up_steps(st))
-                self.warmed = True
-                self.capture = graphs.capture(
-                    lambda: torch.stack([self._step(j) for j in range(n)]),
-                    self.device,
-                    lambda: model_reads() + _optimizer_tensors(opt))
-        else:
-            if key != self.key:
+        # one record of the recorder, in the phases of utils/graphs.Graphed
+        with profiling.recorder().call() as call:
+            key = graphs.graph_key(tuple(inputs), {})
+            first = self.capture is None
+            if first:
+                self._rates()
+                self._capture(inputs, key)
+            elif key != self.key:
                 raise ValueError('StepGraph: the inputs differ in shape or '
-                                 'dtype from those it was captured with')
-            for buf, t in zip(graphs.tensors_of(self.inputs),
-                              graphs.tensors_of(inputs)):
-                buf.copy_(t)
-        graphs.replay(self.capture)
-        st.step += n
-        return self.capture.outputs.clone()
+                                 'dtype, or a flag of graphs.lever_flags '
+                                 'differs, from the capture\'s')
+            graphs.check(self.capture)
+            call.copy_in(self.capture.graph_id, self.device)
+            if not first:
+                self._rates()
+                for buf, t in zip(graphs.tensors_of(self.inputs),
+                                  graphs.tensors_of(inputs)):
+                    buf.copy_(t)
+            call.phase('launch')
+            graphs.launch(self.capture)
+            st.step += n
+            call.phase('clone')
+            out = self.capture.outputs.clone()
+        return out
+
+    def _capture(self, inputs: list, key: tuple) -> None:
+        st, n = self.state, self.n_inner
+        self.inputs, self.key = graphs.tree_map(torch.clone, inputs), key
+        # what the graph reads in place, by a closure that does not hold
+        # self: the capture must not keep its own graph alive
+        model_reads = graphs.tensor_reader([st.model], grads=True)
+        opt = st.optimizer
+        with torch.cuda.device(self.device), deterministic_cudnn():
+            _warm_up_restored(st, lambda: self._step(0), self.device,
+                              warm_up_steps(st))
+            self.warmed = True
+            self.capture = graphs.capture(
+                lambda: torch.stack([self._step(j) for j in range(n)]),
+                self.device, lambda: model_reads() + _optimizer_tensors(opt))
 
 
 class _Scan:

@@ -25,9 +25,14 @@ replays it:
   buffers, the graph replays, and the outputs are cloned, since JAX
   returns fresh arrays and callers keep outputs across calls.  Cloning at
   once also keeps the shared pool safe: no graph's output outlives the
-  next replay of another.
+  next replay of another.  Each call is one record of the process's
+  recorder (``obs/profiling.Recorder``): its host phases ``check`` (the
+  key, the lookup or capture, the storage check), ``copy_in``, ``launch``
+  and ``clone``, and its device stamps, around the call and at the
+  stages (``obs/profiling.stage``) that the capture stamped.
 * **CPU tensors** run the function eagerly: the caller asked for the CPU,
-  and CUDA graphs exist only on the card.
+  and CUDA graphs exist only on the card.  The call is recorded all the
+  same, its launch being the eager run and its stages host stamps.
 
 A captured function draws nothing at random (the caller draws before the
 call and passes the draws in, as JAX passes its ``key``), reads nothing
@@ -54,6 +59,8 @@ from typing import Callable, Iterable, NamedTuple
 
 import torch
 from torch import nn
+
+from esa_pose_estimation_tpu_torch.obs import profiling
 
 _POOLS: dict[int, tuple] = {}
 _CAPTURE_STREAMS: dict[int, torch.cuda.Stream] = {}
@@ -91,13 +98,15 @@ def graph_pool(device: torch.device):
 
 def lever_flags() -> tuple[tuple[str, bool], ...]:
     """The module flags the serving path reads while it runs, which JAX
-    reads at trace time: part of every key."""
+    reads at trace time, and whether the recorder stamps the stages
+    (``obs/profiling.recording``): part of every key."""
     from esa_pose_estimation_tpu_torch.models import hrnet, layers
     from esa_pose_estimation_tpu_torch.ops import peak
     return (('FUSED_CBAM', layers.FUSED_CBAM),
             ('INT8_SERVING', layers.INT8_SERVING),
             ('MERGED_FUSE', hrnet.MERGED_FUSE),
-            ('NHWC_DECODE', peak.NHWC_DECODE))
+            ('NHWC_DECODE', peak.NHWC_DECODE),
+            ('RECORDING', profiling.recorder().on))
 
 
 def _freeze(x):
@@ -220,6 +229,7 @@ class Captured(NamedTuple):
     pool_bytes: int            # memory the capture added to the pool
     reads: Callable[[], list]  # the tensors the graph reads in place
     pointers: tuple[int, ...]  # their storage at capture
+    graph_id: int | None       # the recorder's number (None: no stamps)
 
 
 def capture(fn: Callable[[], object], device: torch.device,
@@ -227,20 +237,24 @@ def capture(fn: Callable[[], object], device: torch.device,
     """Capture ``fn()`` on ``device`` into the shared pool.  The caller has
     warmed ``fn`` up; an error inside the capture raises.  ``reads()``
     lists the tensors outside the graph's inputs that it reads or writes
-    in place (:func:`tensor_reader`), which every :func:`replay`
-    checks."""
+    in place (:func:`tensor_reader`), which every replay checks first
+    (:func:`check`).  The recorder's stages inside ``fn`` stamp into the graph
+    (``obs/profiling.stage``; its ring is made before the capture)."""
     counters = _counted()
     before = [c.launches for c in counters]
-    torch.cuda.synchronize(device)
-    torch.cuda.empty_cache()
-    reserved = torch.cuda.memory_reserved(device)
-    t0 = time.perf_counter()
-    graph = torch.cuda.CUDAGraph()
-    pool, live = graph_pool(device)
-    # thread_local: a loader thread's own CUDA calls stay legal meanwhile
-    with torch.cuda.graph(graph, pool=pool, stream=capture_stream(device),
-                          capture_error_mode='thread_local'):
-        outputs = fn()
+    with profiling.recorder().capturing(device) as graph_id:
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        pool, live = graph_pool(device)
+        # thread_local: a loader thread's own CUDA calls stay legal
+        # meanwhile
+        with torch.cuda.graph(graph, pool=pool,
+                              stream=capture_stream(device),
+                              capture_error_mode='thread_local'):
+            outputs = fn()
     live.add(graph)
     seconds = time.perf_counter() - t0
     launches = tuple(c.launches - b for c, b in zip(counters, before))
@@ -248,13 +262,18 @@ def capture(fn: Callable[[], object], device: torch.device,
         c.launches = b                  # the capture launched nothing
     return Captured(graph, outputs, launches, seconds,
                     torch.cuda.memory_reserved(device) - reserved, reads,
-                    storage_pointers(reads()))
+                    storage_pointers(reads()), graph_id)
 
 
-def replay(cap: Captured) -> None:
-    """Replay ``cap`` once its tensors are checked where they lay at
-    capture (:func:`check_pointers`); the launch counts follow."""
+def check(cap: Captured) -> None:
+    """Raise unless ``cap``'s tensors lie where they lay at capture
+    (:func:`check_pointers`): what every replay does first."""
     check_pointers(cap.pointers, storage_pointers(cap.reads()))
+
+
+def launch(cap: Captured) -> None:
+    """Replay ``cap`` (checked by :func:`check`); the launch counts
+    follow."""
     cap.graph.replay()
     for c, n in zip(_counted(), cap.launches):
         c.launches += n
@@ -281,21 +300,34 @@ class Graphed:
     def __init__(self, fn: Callable):
         self.fn = fn
         self.entries: dict[tuple, tuple[Captured, tuple, dict]] = {}
+        self.eager_id: int | None = None
 
     def __call__(self, *args, **kwargs):
+        rec = profiling.recorder()
         inputs = tensors_of((args, kwargs))
         if not inputs or inputs[0].device.type != 'cuda':
-            return self.fn(*args, **kwargs)
-        key = graph_key(args, kwargs)
-        entry = self.entries.get(key)
-        if entry is None:
-            entry = self.entries[key] = self._capture(args, kwargs,
-                                                      inputs[0].device)
-        cap, s_args, s_kwargs = entry
-        for buf, t in zip(tensors_of((s_args, s_kwargs)), inputs):
-            buf.copy_(t)
-        replay(cap)
-        return tree_map(torch.clone, cap.outputs)
+            if self.eager_id is None:
+                self.eager_id = rec.new_graph()
+            return rec.eager(
+                self.eager_id,
+                inputs[0].device if inputs else torch.device('cpu'),
+                lambda: self.fn(*args, **kwargs))
+        with rec.call() as call:
+            key = graph_key(args, kwargs)
+            entry = self.entries.get(key)
+            if entry is None:
+                entry = self.entries[key] = self._capture(args, kwargs,
+                                                          inputs[0].device)
+            cap, s_args, s_kwargs = entry
+            check(cap)
+            call.copy_in(cap.graph_id, inputs[0].device)
+            for buf, t in zip(tensors_of((s_args, s_kwargs)), inputs):
+                buf.copy_(t)
+            call.phase('launch')
+            launch(cap)
+            call.phase('clone')
+            out = tree_map(torch.clone, cap.outputs)
+        return out
 
     def _capture(self, args, kwargs, device):
         s_args, s_kwargs = tree_map(torch.clone, (args, kwargs))

@@ -1,0 +1,9 @@
+"""Device ms of the ``ransac_epnp`` stage of a batch-1 serving call,
+median over the untraced window's calls, from the program's stage
+stamps inside the serving graph."""
+
+from h100_bench.layer_metrics._spans import stage_ms
+
+
+def read(rec):
+    return stage_ms(rec, 'ransac_epnp')
