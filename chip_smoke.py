@@ -197,6 +197,16 @@ ground truth, and times the path.  Phases:
                  (2, 2) model serves phase 5's frames, FUSED_CBAM off and
                  on: K1 once and K2 0 or 29 times by the counters and the
                  profiler, SPEED median <= 0.01
+ 24. RANSAC      the RANSAC-EPnP kernel (csrc/ransac_epnp.cu): (a) against
+                 its plain version on the keypoints r5 serves for 256
+                 frames, at batch 1 and 256 (chosen inlier sets equal on
+                 99%, rotation and relative translation gaps <= 1e-3 at
+                 the 99th percentile); (b) one launch per serving call by
+                 its counter and, in a replay of the serving graph at
+                 batch 1, by the profiler; no host wait in the call; (c)
+                 the replayed graph's kernels with the kernel and with
+                 the plain version; (d) device ms of both in graphs
+                 (plain, kernel, kernel, plain) at batch 1 and 256
 
 Kernel and plain times (``ms``, ``plain_ms``) are means of eager calls
 between CUDA events, host cost included, as in earlier PRs; K1 and K2 are
@@ -3063,9 +3073,11 @@ def _unequal(a, b) -> list[str]:
     return pose_differences(a, b)
 
 
-def replay_kernels(call) -> tuple[int, int, int]:
-    """(K1, K2, all) device kernels of one ``call()`` under torch.profiler,
-    by name; -1 each when the profiler saw no device time."""
+def replay_kernels(call, kernels: tuple[str, ...] = (K1_KERNEL, K2_KERNEL)
+                   ) -> tuple[int, ...]:
+    """The device kernels of one ``call()`` under torch.profiler whose
+    names hold each of ``kernels`` (K1 and K2 by default), then all of
+    them; -1 each when the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -3076,9 +3088,8 @@ def replay_kernels(call) -> tuple[int, int, int]:
     names = [e.name for e in prof.events()
              if e.device_type == DeviceType.CUDA and e.name not in STAGES]
     if not names:
-        return -1, -1, -1
-    return (sum(K1_KERNEL in n for n in names),
-            sum(K2_KERNEL in n for n in names), len(names))
+        return (-1,) * (len(kernels) + 1)
+    return tuple(sum(k in n for n in names) for k in kernels) + (len(names),)
 
 
 def graphs_serving(model, pts, s) -> tuple[int, int]:
@@ -4064,6 +4075,159 @@ def phase_model_axis(pts, s) -> tuple[int, int]:
     return launches
 
 
+# phase 24: the RANSAC-EPnP kernel's serving settings and its checks (those
+# of tests/test_torch_ransac_kernel.py)
+RANSAC_KW = dict(n_hypotheses=64, sample_size=6, lm_iters=10)
+RANSAC_KERNEL = 'ransac_epnp_kernel'
+
+
+def ransac_flops(n: int, h: int, lm_iters: int) -> float:
+    """Floating-point operations of one RANSAC-EPnP problem as the kernel
+    does them (n points, h hypotheses of 6, 10 LM steps): per hypothesis
+    M^T M (6 x 60 entries), a 12x12 Cholesky, 4 inverse iterations and
+    the reprojection of n points; the refit over n points (4 right-hand
+    sides, 4 x 4 beta steps, two Kabsch fits); n points and a 6x6 solve
+    per LM step.  Counted from the code, ~0.33 MFLOP at n = 30, h = 64."""
+    hyp = 6 * 180 + 600 + 4 * 324 + 100 + n * 34
+    refit = n * 180 + 600 + 4 * (4 * 288 + 300) + 1500 + 16 * 400 \
+        + n * 24 + 300 + 2 * (n * 40 + 800)
+    lm = lm_iters * (n * 140 + 250)
+    return float(h * hyp + refit + lm)
+
+
+def ransac_agreement(label: str, p3, kp, sel, u) -> None:
+    """24a: the kernel against the plain version on one batch."""
+    from esa_pose_estimation_tpu_torch.core import camera
+    from esa_pose_estimation_tpu_torch.ops import epnp, pnp
+    from esa_pose_estimation_tpu_torch.ops.kernels import ransac_epnp as rk
+    K = camera.speed_k(device=DEVICE)
+    b = p3.shape[0]
+    ref = pnp.ransac_epnp_plain(p3, kp, K, valid=sel, uniforms=u, **RANSAC_KW)
+    got = rk.ransac_epnp(p3, kp, K, valid=sel, uniforms=u, return_chosen=True,
+                         **RANSAC_KW)
+    masks = pnp._sample_masks(None, (b,), kp.shape[1], 64, 6, sel, u)
+    score, inl = pnp.hypothesis_scores(epnp.epnp_precompute(p3, kp, K), kp, K,
+                                       sel, masks, False, 5.0)
+    chosen = inl[torch.arange(b, device=DEVICE), score.argmax(-1)]
+    same = (chosen == got[4]).all(-1)
+    ang = _angles_skew(ref.R, got[0])
+    dt = (ref.t - got[1]).norm(dim=-1) / ref.t.norm(dim=-1)
+    q = (lambda x: float(torch.quantile(x.double(), 0.99)))
+    share = float(same.float().mean())
+    inl_ok = bool((ref.inliers[same] == got[2][same]).all())
+    log(f'RANSAC 24a {label}: chosen inlier sets equal on {share:.4f} '
+        f'(limit 0.99), rotation gap p99 {q(ang):.3g} rad (max '
+        f'{float(ang.max()):.3g}), translation gap p99 {q(dt):.3g} (limits '
+        f'1e-3), final inliers equal where the sets are {inl_ok}, finite '
+        f'{bool(torch.isfinite(got[0]).all())}')
+    if not (share >= 0.99 and q(ang) <= 1e-3 and q(dt) <= 1e-3 and inl_ok
+            and bool(torch.isfinite(got[0]).all())):
+        raise AssertionError(f'RANSAC 24a {label}: kernel and plain differ')
+
+
+def _angles_skew(Ra: torch.Tensor, Rb: torch.Tensor) -> torch.Tensor:
+    """Angles of Ra^T Rb from the skew part, in f64 (the trace's arccos
+    loses ~4e-4 rad to f32 rounding near 0)."""
+    M = Ra.double().transpose(-1, -2) @ Rb.double()
+    w = torch.stack([M[..., 2, 1] - M[..., 1, 2], M[..., 0, 2] - M[..., 2, 0],
+                     M[..., 1, 0] - M[..., 0, 1]], -1)
+    return torch.asin(torch.clamp(w.norm(dim=-1) / 2, max=1.0))
+
+
+def phase_ransac(model, pts) -> dict:
+    """24: the RANSAC-EPnP kernel on r5's keypoints.  Returns its record
+    for the kernel table."""
+    from esa_pose_estimation_tpu_torch import pipeline
+    from esa_pose_estimation_tpu_torch.core import camera
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.ops import pnp
+    from esa_pose_estimation_tpu_torch.ops.kernels import ransac_epnp as rk
+    from esa_pose_estimation_tpu_torch.utils.timing import graph_ms
+    t0 = time.perf_counter()
+    s = synthetic.make_sample(torch.Generator(device=DEVICE).manual_seed(
+        SEED + 60), pts, 256)
+    served = pipeline.make_jitted_pipeline(model, pts, **SERVE_KW)(
+        s.image, s.bbox, torch.Generator(device=DEVICE).manual_seed(SEED + 61))
+    kp, sel = served.keypoints_2d.contiguous(), served.selected.contiguous()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 62)
+    inputs = {}
+    for b in (1, 256):
+        inputs[b] = (pts.expand((b,) + pts.shape), kp[:b], sel[:b],
+                     pnp.draw_ransac_uniforms(gen, (b,), 30, 64, DEVICE))
+        ransac_agreement(f'batch {b}', *inputs[b])
+
+    one = synthetic.make_sample(torch.Generator(device=DEVICE).manual_seed(
+        SEED + 63), pts, 1)
+    before = rk.ransac_epnp.launches
+    pipeline.infer_poses(model, one.image, one.bbox, pts, torch.Generator(
+        device=DEVICE).manual_seed(SEED + 64), **SERVE_KW)
+    torch.cuda.synchronize()
+    eager = rk.ransac_epnp.launches - before
+    jitted = pipeline.make_jitted_pipeline(model, pts, **SERVE_KW)
+
+    def call():
+        return jitted(one.image, one.bbox, torch.Generator(
+            device=DEVICE).manual_seed(SEED + 64))
+    call()
+    in_replay, nodes = replay_kernels(call, (RANSAC_KERNEL,))
+    check_no_host_wait('RANSAC 24b serving call', lambda: pipeline.infer_poses(
+        model, one.image, one.bbox, pts, torch.Generator(
+            device=DEVICE).manual_seed(SEED + 64), **SERVE_KW))
+    # the same serving graph with the plain version in the kernel's place
+    kernel_fn = pnp.ransac_epnp
+    pnp.ransac_epnp = pnp.ransac_epnp_plain
+    try:
+        plain_jitted = pipeline.make_jitted_pipeline(model, pts, **SERVE_KW)
+        plain_jitted(one.image, one.bbox)
+        _, plain_nodes = replay_kernels(
+            lambda: plain_jitted(one.image, one.bbox), (RANSAC_KERNEL,))
+    finally:
+        pnp.ransac_epnp = kernel_fn
+    del plain_jitted
+    log(f'RANSAC 24b: launches in one eager serving call {eager} (counter), '
+        f'{in_replay} {RANSAC_KERNEL} in one replay of the batch-1 serving '
+        f'graph (profiler; expected 1 and 1)')
+    log(f'RANSAC 24c: one replay of the batch-1 serving graph holds {nodes} '
+        f'kernels with the kernel, {plain_nodes} with the plain version '
+        f'(-{plain_nodes - nodes})')
+    if eager != 1 or in_replay not in (1, -1):
+        raise AssertionError(f'RANSAC 24b: launches {eager}, in a replay '
+                             f'{in_replay} (expected 1 and 1)')
+
+    K = camera.speed_k(device=DEVICE)
+    rec = {'name': 'ransac_epnp', 'route': 'cuda',
+           'source': 'esa_pose_estimation_tpu_torch/csrc/ransac_epnp.cu',
+           'replaces': 'none (esa_pose_estimation_tpu/ops/pnp.py '
+                       'ransac_epnp is jnp under jit)', 'launches': eager}
+    for b in (1, 256):
+        p3, kpb, selb, u = inputs[b]
+
+        def run(fn):
+            return lambda: fn(p3, kpb, K, valid=selb, uniforms=u, **RANSAC_KW)
+        t = {'plain': [], 'kernel': []}
+        for name in ('plain', 'kernel', 'kernel', 'plain'):
+            fn = pnp.ransac_epnp_plain if name == 'plain' else pnp.ransac_epnp
+            t[name].append(graph_ms(run(fn), [()]))
+        b_ms, b_by = bound(b * (30 * 2 * 4 + 30 + 64 * 30 * 4 + 9 * 4
+                                + 30 * 3 * 4 + 48 + 30 + 4),
+                           b * ransac_flops(30, 64, 10))
+        k_ms, p_ms = statistics.fmean(t['kernel']), statistics.fmean(t['plain'])
+        log(f'RANSAC 24d batch {b}: graph device ms kernel {t["kernel"]}, '
+            f'plain {t["plain"]}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms '
+            f'({p_ms / k_ms:.1f}x); bound {b_ms:.6f} ms ({b_by})')
+        if b == 1:
+            rec.update(graph_ms=k_ms, plain_graph_ms=p_ms, bound_ms=b_ms,
+                       bound_by=b_by)
+        else:
+            rec.update(graph_ms_256=k_ms, plain_graph_ms_256=p_ms,
+                       bound_ms_256=b_ms)
+    rec['kernels_per_replay_b1'] = [nodes, plain_nodes]
+    del jitted
+    torch.cuda.empty_cache()
+    log(f'RANSAC: phase {time.perf_counter() - t0:.1f} s')
+    return rec
+
+
 def main() -> None:
     global WORK
     WORK = tempfile.mkdtemp(prefix='chip_smoke_')
@@ -4115,6 +4279,7 @@ def run() -> None:
      k2['launches_sharded_serving']) = phase_sharded(model, pts, frames)
     (k1['launches_model_axis_serving'],
      k2['launches_model_axis_serving']) = phase_model_axis(pts, frames)
+    k4 = phase_ransac(model, pts)
     log(f'total: {time.perf_counter() - t_start:.1f} s')
     # graph_ms / plain_graph_ms (K1 and K2): the same calls replayed from a
     # CUDA graph, beside ms / plain_ms by eager calls as in earlier PRs;
@@ -4138,7 +4303,8 @@ def run() -> None:
     # launches_sharded_serving (K1 and K2): in one FUSED_CBAM call of phase
     # 22's sharded pipeline over its last mesh (one per shard; 29 K2 each);
     # launches_model_axis_serving (K1 and K2): in one FUSED_CBAM serving
-    # call of phase 23c's gathered (2, 2) model
+    # call of phase 23c's gathered (2, 2) model; for the RANSAC-EPnP
+    # kernel (phase 24) launches counts one serving call
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
             'graph_ms', 'plain_graph_ms', 'launches_two_stage',
@@ -4147,9 +4313,11 @@ def run() -> None:
             'launches_rehearsal_train_eval', 'launches_rehearsal_evaluate',
             'launches_imported_checkpoint', 'launches_linemod_db_eval',
             'launches_graph_replay', 'launches_pickle_train_eval',
-            'launches_sharded_serving', 'launches_model_axis_serving')
+            'launches_sharded_serving', 'launches_model_axis_serving',
+            'graph_ms_256', 'plain_graph_ms_256', 'bound_ms_256',
+            'kernels_per_replay_b1')
     print(json.dumps({'kernels': [{k: rec[k] for k in keys if k in rec}
-                                  for rec in (k1, k2, k3)]}))
+                                  for rec in (k1, k2, k3, k4)]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

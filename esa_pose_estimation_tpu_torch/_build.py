@@ -42,7 +42,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
+    # the headers beside the sources are part of every library's hash
+    headers = b''.join(h.read_bytes() for h in sorted(CSRC.glob('*.cuh')))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f'lib{src.stem}_{digest}.so'
 

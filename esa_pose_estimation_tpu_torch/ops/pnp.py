@@ -3,7 +3,10 @@
 
 * :func:`ransac_epnp` replaces ``cv2.solvePnPRansac(reprojectionError=5,
   SOLVEPNP_EPNP)`` (reference: pnp.py:68-73) with a fixed sweep of
-  hypotheses, each a weight mask, all solved as one batch.
+  hypotheses, each a weight mask, all solved as one batch.  On CUDA
+  tensors it is one launch of ``csrc/ransac_epnp.cu``
+  (``ops/kernels/ransac_epnp.py``); on CPU tensors it is
+  :func:`ransac_epnp_plain`, the kernel's plain version.
 * :func:`lm_refine` replaces the Ceres ``cpnp.cpnp_m`` refinement: a
   fixed-iteration damped Gauss-Newton on a left SO(3) increment plus
   translation, minimizing confidence-weighted reprojection residuals.
@@ -39,6 +42,9 @@ from esa_pose_estimation_tpu_torch.ops.epnp import (
     normalize_points_2d,
     reprojection_errors,
     weighted_kabsch,
+)
+from esa_pose_estimation_tpu_torch.ops.kernels import (
+    ransac_epnp as ransac_kernel,
 )
 
 
@@ -254,6 +260,36 @@ def _sample_masks(generator: torch.Generator | None, batch: tuple[int, ...],
     return masks.scatter_(-1, idx, 1.0)
 
 
+def hypothesis_scores(shared: EpnpShared, points_2d: torch.Tensor,
+                      K: torch.Tensor, valid: torch.Tensor,
+                      masks: torch.Tensor, refine_betas: bool,
+                      reproj_threshold: float
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ransac_epnp_plain`'s hypotheses: EPnP on each mask (..., H,
+    N), then the pixel reprojection errors of every point.  Returns the
+    scores ``n_inl - mean_err / (4 threshold)`` (..., H) and the inliers
+    (..., H, N) bool, under the threshold and ``valid``."""
+    shared_h = EpnpShared(
+        points_3d=shared.points_3d[..., None, :, :],
+        alphas=shared.alphas[..., None, :, :],
+        G=shared.G[..., None, :, :, :],
+        dist_w=shared.dist_w[..., None, :],
+    )
+    pts_cam = epnp_reconstruct(shared_h, masks, refine_betas=refine_betas)
+    z = torch.where(pts_cam[..., 2].abs() < 1e-6, 1e-6, pts_cam[..., 2])
+    proj = pts_cam[..., :2] / z[..., None]                       # (...,H,N,2)
+    norm_2d = normalize_points_2d(points_2d, K)[..., None, :, :]
+    fxy = torch.stack([K[..., 0, 0], K[..., 1, 1]], dim=-1)
+    dpix = (proj - norm_2d) * fxy[..., None, None, :]
+    errs = torch.linalg.vector_norm(dpix, dim=-1)                # (..., H, N)
+
+    inl = (errs < reproj_threshold) & valid[..., None, :]
+    n_inl = inl.sum(-1)                                          # (..., H)
+    mean_err = (torch.where(inl, errs, 0.0).sum(-1)
+                / torch.clamp(n_inl, min=1))
+    return n_inl.to(errs.dtype) - mean_err / (reproj_threshold * 4.0), inl
+
+
 def ransac_epnp(points_3d: torch.Tensor, points_2d: torch.Tensor,
                 K: torch.Tensor, generator: torch.Generator | None = None,
                 valid: torch.Tensor | None = None,
@@ -263,7 +299,30 @@ def ransac_epnp(points_3d: torch.Tensor, points_2d: torch.Tensor,
                 lm_iters: int = 10,
                 masks: torch.Tensor | None = None,
                 uniforms: torch.Tensor | None = None) -> PnPResult:
-    """RANSAC-EPnP, batched over any leading dims.
+    """RANSAC-EPnP, batched over any leading dims (see
+    :func:`ransac_epnp_plain`): the plain version for CPU tensors, one
+    launch of the kernel (``ops/kernels/ransac_epnp.py``) for any other,
+    which raises on what it does not take."""
+    if points_3d.device.type == 'cpu':
+        return ransac_epnp_plain(points_3d, points_2d, K, generator, valid,
+                                 reproj_threshold, n_hypotheses, sample_size,
+                                 lm_iters, masks, uniforms)
+    return PnPResult(*ransac_kernel.ransac_epnp(
+        points_3d, points_2d, K, generator, valid, reproj_threshold,
+        n_hypotheses, sample_size, lm_iters, masks, uniforms))
+
+
+def ransac_epnp_plain(points_3d: torch.Tensor, points_2d: torch.Tensor,
+                      K: torch.Tensor,
+                      generator: torch.Generator | None = None,
+                      valid: torch.Tensor | None = None,
+                      reproj_threshold: float = 5.0,
+                      n_hypotheses: int = 64,
+                      sample_size: int = 6,
+                      lm_iters: int = 10,
+                      masks: torch.Tensor | None = None,
+                      uniforms: torch.Tensor | None = None) -> PnPResult:
+    """RANSAC-EPnP, batched over any leading dims, in plain tensor code.
 
     points_3d (..., N, 3); points_2d (..., N, 2) pixels; valid (..., N)
     bool mask of usable correspondences.  ``masks`` (..., H, N) injects the
@@ -289,25 +348,8 @@ def ransac_epnp(points_3d: torch.Tensor, points_2d: torch.Tensor,
     hyp_refine = sample_size < 6
 
     shared = epnp_precompute(points_3d, points_2d, K)
-    shared_h = EpnpShared(
-        points_3d=shared.points_3d[..., None, :, :],
-        alphas=shared.alphas[..., None, :, :],
-        G=shared.G[..., None, :, :, :],
-        dist_w=shared.dist_w[..., None, :],
-    )
-    pts_cam = epnp_reconstruct(shared_h, masks, refine_betas=hyp_refine)
-    z = torch.where(pts_cam[..., 2].abs() < 1e-6, 1e-6, pts_cam[..., 2])
-    proj = pts_cam[..., :2] / z[..., None]                       # (...,H,N,2)
-    norm_2d = normalize_points_2d(points_2d, K)[..., None, :, :]
-    fxy = torch.stack([K[..., 0, 0], K[..., 1, 1]], dim=-1)
-    dpix = (proj - norm_2d) * fxy[..., None, None, :]
-    errs = torch.linalg.vector_norm(dpix, dim=-1)                # (..., H, N)
-
-    inl = (errs < reproj_threshold) & v[..., None, :]
-    n_inl = inl.sum(-1)                                          # (..., H)
-    mean_err = (torch.where(inl, errs, 0.0).sum(-1)
-                / torch.clamp(n_inl, min=1))
-    score = n_inl.to(errs.dtype) - mean_err / (reproj_threshold * 4.0)
+    score, inl = hypothesis_scores(shared, points_2d, K, v, masks,
+                                   hyp_refine, reproj_threshold)
     best = torch.argmax(score, dim=-1)                           # (...,)
 
     best_inl = torch.gather(
