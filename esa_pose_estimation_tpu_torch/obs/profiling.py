@@ -190,8 +190,9 @@ class MultiClassPrecisionRecall:
 # ---------------------------------------------------------------------------
 # The recorder (see the module's docstring)
 
-RING_CALLS = 16_384     # calls a ring keeps: ~8 MiB of stamps on a card
-RING_STAMPS = 64        # stamps a call may hold: entry, exit and stages'
+RING_CALLS = 16_384     # calls a ring keeps: 16 MiB of stamps on a card
+RING_STAMPS = 128       # stamps a call may hold: entry, exit and stages'
+# (a ViTPose-H serving call holds 80, its 32 blocks' attention 64 of them)
 CALIBRATION_ROUNDS = 16
 PHASES = ('check', 'copy_in', 'launch', 'clone')
 _ENTRY, _EXIT, _FIRST_STAGE = 0, 1, 2    # a call's stamp indices

@@ -7,7 +7,8 @@ Torch port of the JAX package's ``pipeline.py`` (``infer_poses``,
   1. detect (optional)            -- models/detector.py on pooled frames,
                                      or given boxes (simple_detect.py role)
   2. square crop x1.05 + resize   -- ops/crop.py (data_load4.py:110-166)
-  3. HRNet heatmaps               -- models/hrnet.py (seg_hrnet3 forward)
+  3. heatmaps                     -- models/hrnet.py (seg_hrnet3 forward),
+                                     or models/vitpose.py at stride 4
   4. peak decode + log-Taylor     -- ops/peak.py -> the CUDA kernel on the card
   5. confidence top-k select      -- demo.py:195-200 / val.py:172-177
   6. RANSAC-EPnP + dual LM refine -- ops/pnp.py
@@ -50,7 +51,8 @@ class PoseOutput(NamedTuple):
     confidences: torch.Tensor   # (B, K) heatmap peak values
     selected: torch.Tensor      # (B, K) bool keypoints used for the pose
     heatmaps: torch.Tensor      # (B, S, S, K) network output
-    rates: torch.Tensor         # (B,) crop rate (uncrop: pred/rate+origin)
+    rates: torch.Tensor         # (B,) crop rate (uncrop: pred * stride /
+    # rate + origin, stride = crop size / heatmap size)
     origins: torch.Tensor       # (B, 2) crop top-left
 
 
@@ -76,10 +78,10 @@ def infer_poses(model, frames: torch.Tensor, bboxes: torch.Tensor,
     """Batched frames + detector boxes -> poses.
 
     frames (B, H, W) grayscale [0, 255]; bboxes (B, 4) [x1, y1, x2, y2];
-    points_3d (K, 3) model keypoints.  ``model`` is an :class:`HRNet` on the
-    frames' device.  ``generator`` draws the RANSAC samples (on the frames'
-    device); ``ransac_uniforms`` (B, n_hypotheses, K), drawn by
-    ``ops.pnp.draw_ransac_uniforms``, replace that draw, and
+    points_3d (K, 3) model keypoints.  ``model`` is an :class:`HRNet` or a
+    :class:`ViTPose` on the frames' device.  ``generator`` draws the RANSAC
+    samples (on the frames' device); ``ransac_uniforms`` (B, n_hypotheses,
+    K), drawn by ``ops.pnp.draw_ransac_uniforms``, replace that draw, and
     ``ransac_masks`` (B, n_hypotheses, K) inject the samples themselves.
     ``crop_rule``: 'train' = ESADataSet box rule, 'val' = the submission
     rule without square-equalization.
@@ -118,11 +120,18 @@ def infer_poses_from_crops(model, crops: torch.Tensor, rates: torch.Tensor,
                            ransac_masks: torch.Tensor | None = None,
                            ransac_uniforms: torch.Tensor | None = None
                            ) -> PoseOutput:
-    """The serving tail from cropped imagery: normalize -> HRNet -> decode
-    -> select -> uncrop -> RANSAC-EPnP -> dual LM.
+    """The serving tail from cropped imagery: normalize -> network ->
+    decode -> select -> uncrop -> RANSAC-EPnP -> dual LM.
 
     crops (B, S, S) [0, 255]; rates (B,); origins (B, 2), as
-    ``ops.crop.crop_resize`` returns them.
+    ``ops.crop.crop_resize`` returns them.  The network's heatmaps may be
+    smaller than the crop by a stride taken from the shapes (S over the
+    heatmaps' side: 1 for HRNet, 4 for ViTPose): a heatmap pixel ``c`` is
+    crop pixel ``c * stride`` (mmpose's convention without UDP), so the
+    uncrop is ``coords * stride / rates + origins`` and the mirror pose's
+    heatmap evidence reprojects at ``rates / stride``.  At stride 1 both
+    are the plain ``coords / rates + origins`` and ``rates``.  The network
+    stage keeps its name ``hrnet`` whatever the model.
     """
     dev = crops.device
     if K is None:
@@ -141,6 +150,11 @@ def infer_poses_from_crops(model, crops: torch.Tensor, rates: torch.Tensor,
         coords, maxvals = peak_ops.decode_heatmaps_auto_nhwc(hm)
         sel = peak_ops.select_confident(maxvals, conf_threshold,
                                         min_count=min_keypoints)
+        stride = _heatmap_stride(crops, hm)
+        hm_rates = rates
+        if stride != 1:
+            coords = coords * stride
+            hm_rates = rates / stride
         uncropped = (coords / rates[:, None, None]
                      + origins[:, None, :].to(torch.float32))
     p3 = points_3d.expand((crops.shape[0],) + points_3d.shape)
@@ -161,7 +175,7 @@ def infer_poses_from_crops(model, crops: torch.Tensor, rates: torch.Tensor,
             ev_fn = None
             if mirror_evidence == 'heatmap':
                 ev_fn = pnp_mod.heatmap_evidence(hm.to(torch.float32), p3,
-                                                 K, rates, origins,
+                                                 K, hm_rates, origins,
                                                  valid=sel)
             R, t = pnp_mod.lm_refine_dual(p3, uncropped, w, K, init.R,
                                           init.t, iters=lm_iters,
@@ -173,6 +187,16 @@ def infer_poses_from_crops(model, crops: torch.Tensor, rates: torch.Tensor,
                       keypoints_2d=uncropped, confidences=maxvals,
                       selected=sel, heatmaps=hm, rates=rates,
                       origins=origins)
+
+
+def _heatmap_stride(crops: torch.Tensor, hm: torch.Tensor) -> int:
+    """Crop pixels per heatmap pixel, from the shapes: (B, S, S) crops and
+    (B, S / stride, S / stride, K) heatmaps."""
+    size, side = crops.shape[1], hm.shape[1]
+    if size % side or hm.shape[2] != side:
+        raise ValueError(f'heatmaps {tuple(hm.shape)} do not tile crops '
+                         f'{tuple(crops.shape)} by a whole stride')
+    return size // side
 
 
 def make_pipeline(model, points_3d: torch.Tensor,

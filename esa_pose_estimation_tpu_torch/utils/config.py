@@ -80,6 +80,46 @@ def hrnet_tiny() -> HRNetConfig:
 
 
 @dataclass(frozen=True)
+class ViTPoseConfig:
+    """ViTPose (Xu et al., NeurIPS 2022, arXiv:2204.12484): a plain vision
+    transformer over ``patch_size`` patches and the classic head of
+    ``len(head_channels)`` stride-2 deconvolutions, heatmaps at
+    1/2**len(head_channels) of the input.  Defaults: ViTPose-H's widths
+    (``ViTPose_huge_coco_256x192.py``), at the port's crop and keypoints
+    (:func:`vitpose_h_speed`)."""
+    num_keypoints: int = 30
+    img_size: int = 512
+    patch_size: int = 16
+    patch_padding: int = 2
+    embed_dim: int = 1280
+    depth: int = 32
+    num_heads: int = 16
+    mlp_ratio: int = 4
+    ln_eps: float = 1e-6
+    head_channels: tuple[int, ...] = (256, 256)
+
+    @property
+    def grid(self) -> int:
+        """Patches along a side."""
+        return ((self.img_size + 2 * self.patch_padding - self.patch_size)
+                // self.patch_size + 1)
+
+
+def vitpose_h_speed() -> ViTPoseConfig:
+    """ViTPose-H at every published width, on SPEED's grey 512x512 crops
+    with 30 keypoints: 32x32 = 1,024 tokens, 128x128 heatmaps (stride 4),
+    the shape the peak decode reads for ``hrnet_esa``."""
+    return ViTPoseConfig()
+
+
+def vitpose_tiny() -> ViTPoseConfig:
+    """Small ViTPose for tests: 64x64 crops, 4x4 tokens of width 64, two
+    blocks of four heads of 16, 16x16 heatmaps of 8 keypoints."""
+    return ViTPoseConfig(num_keypoints=8, img_size=64, embed_dim=64,
+                         depth=2, num_heads=4, head_channels=(32, 32))
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Training hyper-parameters (reference: main.py:257-302)."""
     batch_size: int = 32

@@ -165,18 +165,27 @@ def tensors_of(x) -> list[torch.Tensor]:
     return out
 
 
-def _counted() -> tuple:
-    """The kernel wrappers that count their launches."""
+def _counts() -> tuple[tuple[str, object, str], ...]:
+    """What a replay adds to, as (label, wrapper, attribute): each hand-
+    written kernel's launches, attention's calls and its query tokens."""
     from esa_pose_estimation_tpu_torch.experimental.branch_chain import (
         branch_chain,
     )
     from esa_pose_estimation_tpu_torch.experimental.cbam_fuse import (
         fused_cbam,
     )
+    from esa_pose_estimation_tpu_torch.models.vitpose import attention
     from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
         peak_decode,
     )
-    return (peak_decode, fused_cbam, branch_chain)
+    from esa_pose_estimation_tpu_torch.ops.kernels.ransac_epnp import (
+        ransac_epnp,
+    )
+    return (('k1', peak_decode, 'launches'), ('k2', fused_cbam, 'launches'),
+            ('k3', branch_chain, 'launches'),
+            ('ransac_epnp', ransac_epnp, 'launches'),
+            ('sdpa', attention, 'launches'),
+            ('sdpa_tokens', attention, 'tokens'))
 
 
 def tensor_reader(modules: Iterable[nn.Module], grads: bool = False
@@ -224,7 +233,7 @@ def check_pointers(recorded: tuple[int, ...], current: tuple[int, ...]
 class Captured(NamedTuple):
     graph: torch.cuda.CUDAGraph
     outputs: object            # the graph's static outputs
-    launches: tuple[int, ...]  # kernel launches per replay, _counted()'s order
+    launches: dict[str, int]   # counts added per replay, by _counts()' label
     seconds: float             # the capture's host time
     pool_bytes: int            # memory the capture added to the pool
     reads: Callable[[], list]  # the tensors the graph reads in place
@@ -240,8 +249,8 @@ def capture(fn: Callable[[], object], device: torch.device,
     in place (:func:`tensor_reader`), which every replay checks first
     (:func:`check`).  The recorder's stages inside ``fn`` stamp into the graph
     (``obs/profiling.stage``; its ring is made before the capture)."""
-    counters = _counted()
-    before = [c.launches for c in counters]
+    counters = _counts()
+    before = [getattr(c, n) for _, c, n in counters]
     with profiling.recorder().capturing(device) as graph_id:
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
@@ -257,9 +266,10 @@ def capture(fn: Callable[[], object], device: torch.device,
             outputs = fn()
     live.add(graph)
     seconds = time.perf_counter() - t0
-    launches = tuple(c.launches - b for c, b in zip(counters, before))
-    for c, b in zip(counters, before):
-        c.launches = b                  # the capture launched nothing
+    launches = {label: getattr(c, n) - b
+                for (label, c, n), b in zip(counters, before)}
+    for (_, c, n), b in zip(counters, before):
+        setattr(c, n, b)                # the capture launched nothing
     return Captured(graph, outputs, launches, seconds,
                     torch.cuda.memory_reserved(device) - reserved, reads,
                     storage_pointers(reads()), graph_id)
@@ -275,8 +285,8 @@ def launch(cap: Captured) -> None:
     """Replay ``cap`` (checked by :func:`check`); the launch counts
     follow."""
     cap.graph.replay()
-    for c, n in zip(_counted(), cap.launches):
-        c.launches += n
+    for label, c, n in _counts():
+        setattr(c, n, getattr(c, n) + cap.launches[label])
 
 
 def warm_up(fn: Callable[[], object], device: torch.device) -> None:
@@ -339,8 +349,9 @@ class Graphed:
         return cap, s_args, s_kwargs
 
     def stats(self) -> list[dict]:
-        """Per graph: capture seconds, pool bytes, kernel launches per
-        replay (K1, K2, K3)."""
+        """Per graph: capture seconds, pool bytes, what a replay adds to
+        each of :func:`_counts` (kernel launches, attention's calls and
+        tokens)."""
         return [{'seconds': c.seconds, 'pool_bytes': c.pool_bytes,
-                 'launches': dict(zip(('k1', 'k2', 'k3'), c.launches))}
+                 'launches': dict(c.launches)}
                 for c, _, _ in self.entries.values()]

@@ -229,8 +229,12 @@ def test_tree_helpers():
 
 
 def test_counted_wrappers_are_the_kernels():
-    assert graphs._counted()[:2] == (peak_decode, fused_cbam)
-    assert all(isinstance(c.launches, int) for c in graphs._counted())
+    counts = graphs._counts()
+    assert [c[:2] for c in counts[:2]] == [('k1', peak_decode),
+                                           ('k2', fused_cbam)]
+    assert [label for label, _, _ in counts] == [
+        'k1', 'k2', 'k3', 'ransac_epnp', 'sdpa', 'sdpa_tokens']
+    assert all(isinstance(getattr(c, n), int) for _, c, n in counts)
 
 
 # --- the scan ----------------------------------------------------------------
