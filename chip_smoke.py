@@ -207,6 +207,17 @@ ground truth, and times the path.  Phases:
                  the replayed graph's kernels with the kernel and with
                  the plain version; (d) device ms of both in graphs
                  (plain, kernel, kernel, plain) at batch 1 and 256
+ 25. LM          the dual LM kernel (csrc/lm_dual.cu): (a) against its
+                 plain version on r5's served frames, RANSAC-EPnP's poses
+                 and the network's maps, at batch 1 and 256 (the kept
+                 candidate equal on 99% of the problems whose two are
+                 distinct, rotation and relative translation gaps <= 1e-3
+                 at the 99th percentile); (b) one launch per serving call
+                 by its counter, Graphed.stats() and, in a replay of the
+                 batch-1 serving graph, the profiler; no host wait; (c)
+                 the replayed graph's kernels with the kernel and with the
+                 plain version; (d) device ms of both in graphs at batch 1
+                 and 256
 
 Kernel and plain times (``ms``, ``plain_ms``) are means of eager calls
 between CUDA events, host cost included, as in earlier PRs; K1 and K2 are
@@ -4228,6 +4239,165 @@ def phase_ransac(model, pts) -> dict:
     return rec
 
 
+# phase 25: the dual LM kernel's serving settings and its checks (those of
+# tests/test_torch_lm_dual_kernel.py)
+LM_DUAL_KERNEL = 'lm_dual_kernel'
+
+
+def lm_dual_flops(n: int, iters: int) -> float:
+    """Floating-point operations of one refine problem as the kernel does
+    them (n points, both candidates, ``iters`` LM steps): per point and
+    step the 28 terms of J^T J, J^T r and r^2 (~175) and the candidate's
+    residual (~20), per step a 6x6 Cholesky, its substitutions and a
+    Rodrigues rotation (~250); the mirror's cloud, centroid and Kabsch
+    sums (~60 a point) and its polar iterations (~1,000); each
+    candidate's four heatmap taps (~40 a point).  ~0.13 MFLOP at n = 30,
+    10 steps."""
+    return float(2 * (iters * (n * 195 + 250) + n * 20 + n * 40)
+                 + n * 60 + 1000)
+
+
+def lm_dual_bytes(n: int) -> int:
+    """Bytes one refine problem reads and writes: points, keypoints,
+    confidences, selection and inliers, start pose, K, crop rate and
+    origin, four f32 heatmap taps a point for each candidate, and (R, t)."""
+    return n * (12 + 8 + 4 + 1 + 1) + 48 + 36 + 12 + 2 * n * 4 * 4 + 48
+
+
+def lm_dual_agreement(label: str, pr: dict) -> None:
+    """25a: the kernel against the plain version on one batch: the kept
+    candidate where the two are distinct, and the poses."""
+    from esa_pose_estimation_tpu_torch.ops import pnp
+    from esa_pose_estimation_tpu_torch.ops.kernels import lm_dual as lk
+    ref = pnp.refine_pose_plain(**pr, iters=10)
+    got = lk.refine_pose(**pr, iters=10, return_pick=True)
+    w = pnp.refine_weights(pr['confidences'], pr['select'], pr['inliers'])
+    ev = pnp.heatmap_evidence(pr['heatmaps'], pr['points_3d'], pr['K'],
+                              pr['rates'], pr['origins'], valid=pr['select'])
+    R2, t2, pick = pnp.dual_candidates(pr['points_3d'], pr['points_2d'], w,
+                                       pr['K'], pr['R0'], pr['t0'], 10, ev)
+    distinct = ((_angles_skew(R2[0], R2[1]) > 1e-3)
+                | ((t2[0] - t2[1]).norm(dim=-1) / t2[0].norm(dim=-1) > 1e-3))
+    same = pick == got[2].long()
+    share = float(same[distinct].float().mean()) if distinct.any() else 1.0
+    ang = _angles_skew(ref[0], got[0])
+    dt = (ref[1] - got[1]).norm(dim=-1) / ref[1].norm(dim=-1)
+    q = (lambda x: float(torch.quantile(x.double(), 0.99)))
+    log(f'LM 25a {label}: kept candidate equal on {share:.4f} of the '
+        f'{int(distinct.sum())} problems whose candidates are distinct '
+        f'(limit 0.99; mirror kept on {float(pick.float().mean()):.3f}), '
+        f'rotation gap p99 {q(ang):.3g} rad (max {float(ang.max()):.3g}), '
+        f'translation gap p99 {q(dt):.3g} (limits 1e-3)')
+    if not (share >= 0.99 and q(ang) <= 1e-3 and q(dt) <= 1e-3
+            and bool(torch.isfinite(got[0]).all())):
+        raise AssertionError(f'LM 25a {label}: kernel and plain differ')
+
+
+def phase_lm_dual(model, pts) -> dict:
+    """25: the dual LM kernel on r5's served frames: (a) against its plain
+    version at batch 1 and 256; (b) one launch per serving call by its
+    counter and, in a replay of the batch-1 serving graph, by the
+    profiler; no host wait in the call; (c) the replayed graph's kernels
+    with the kernel and with the plain version; (d) device ms of both in
+    graphs (plain, kernel, kernel, plain) at batch 1 and 256.  Returns
+    its record for the kernel table."""
+    from esa_pose_estimation_tpu_torch import pipeline
+    from esa_pose_estimation_tpu_torch.core import camera
+    from esa_pose_estimation_tpu_torch.data import synthetic
+    from esa_pose_estimation_tpu_torch.ops import pnp
+    from esa_pose_estimation_tpu_torch.ops.kernels import lm_dual as lk
+    from esa_pose_estimation_tpu_torch.utils.timing import graph_ms
+    t0 = time.perf_counter()
+    s = synthetic.make_sample(torch.Generator(device=DEVICE).manual_seed(
+        SEED + 70), pts, 256)
+    served = pipeline.make_jitted_pipeline(model, pts, **SERVE_KW)(
+        s.image, s.bbox, torch.Generator(device=DEVICE).manual_seed(SEED + 71))
+    K = camera.speed_k(device=DEVICE)
+    p3 = pts.expand((256,) + pts.shape)
+    kp, sel = served.keypoints_2d.clone(), served.selected.clone()
+    u = pnp.draw_ransac_uniforms(torch.Generator(device=DEVICE).manual_seed(
+        SEED + 72), (256,), 30, 64, DEVICE)
+    init = pnp.ransac_epnp(p3, kp, K, valid=sel, uniforms=u, **RANSAC_KW)
+    full = dict(points_3d=p3, points_2d=kp,
+                confidences=served.confidences.clone(), K=K, R0=init.R,
+                t0=init.t, select=sel, inliers=init.inliers,
+                heatmaps=served.heatmaps.clone(), rates=served.rates.clone(),
+                origins=served.origins.clone())
+    inputs = {b: {k: (v if k == 'K' else v[:b]) for k, v in full.items()}
+              for b in (1, 256)}
+    for b in (1, 256):
+        lm_dual_agreement(f'batch {b}', inputs[b])
+
+    one = synthetic.make_sample(torch.Generator(device=DEVICE).manual_seed(
+        SEED + 73), pts, 1)
+    before = lk.refine_pose.launches
+    pipeline.infer_poses(model, one.image, one.bbox, pts, torch.Generator(
+        device=DEVICE).manual_seed(SEED + 74), **SERVE_KW)
+    torch.cuda.synchronize()
+    eager = lk.refine_pose.launches - before
+    jitted = pipeline.make_jitted_pipeline(model, pts, **SERVE_KW)
+
+    def call():
+        return jitted(one.image, one.bbox, torch.Generator(
+            device=DEVICE).manual_seed(SEED + 74))
+    call()
+    stats = jitted.graphs.stats()[-1]['launches']
+    in_replay, nodes = replay_kernels(call, (LM_DUAL_KERNEL,))
+    check_no_host_wait('LM 25b serving call', lambda: pipeline.infer_poses(
+        model, one.image, one.bbox, pts, torch.Generator(
+            device=DEVICE).manual_seed(SEED + 74), **SERVE_KW))
+    # the same serving graph with the plain version in the kernel's place
+    kernel_fn = pnp.refine_pose
+    pnp.refine_pose = pnp.refine_pose_plain
+    try:
+        plain_jitted = pipeline.make_jitted_pipeline(model, pts, **SERVE_KW)
+        plain_jitted(one.image, one.bbox)
+        _, plain_nodes = replay_kernels(
+            lambda: plain_jitted(one.image, one.bbox), (LM_DUAL_KERNEL,))
+    finally:
+        pnp.refine_pose = kernel_fn
+    del plain_jitted
+    log(f'LM 25b: launches in one eager serving call {eager} (counter), '
+        f'{stats} by Graphed.stats(), {in_replay} {LM_DUAL_KERNEL} in one '
+        f'replay of the batch-1 serving graph (profiler; expected 1, 1, 1)')
+    log(f'LM 25c: one replay of the batch-1 serving graph holds {nodes} '
+        f'kernels with the kernel, {plain_nodes} with the plain version '
+        f'(-{plain_nodes - nodes})')
+    if eager != 1 or stats['lm_dual'] != 1 or in_replay not in (1, -1):
+        raise AssertionError(f'LM 25b: launches {eager}, {stats}, in a '
+                             f'replay {in_replay} (expected 1, 1 and 1)')
+
+    rec = {'name': 'lm_dual', 'route': 'cuda',
+           'source': 'esa_pose_estimation_tpu_torch/csrc/lm_dual.cu',
+           'replaces': 'none (esa_pose_estimation_tpu/ops/pnp.py '
+                       'lm_refine_dual is jnp under jit)', 'launches': eager}
+    for b in (1, 256):
+        pr = inputs[b]
+
+        def run(fn):
+            return lambda: fn(**pr, iters=10)
+        t = {'plain': [], 'kernel': []}
+        for name in ('plain', 'kernel', 'kernel', 'plain'):
+            fn = pnp.refine_pose_plain if name == 'plain' else pnp.refine_pose
+            t[name].append(graph_ms(run(fn), [()]))
+        b_ms, b_by = bound(b * lm_dual_bytes(30), b * lm_dual_flops(30, 10))
+        k_ms, p_ms = statistics.fmean(t['kernel']), statistics.fmean(t['plain'])
+        log(f'LM 25d batch {b}: graph device ms kernel {t["kernel"]}, '
+            f'plain {t["plain"]}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms '
+            f'({p_ms / k_ms:.1f}x); bound {b_ms:.6f} ms ({b_by})')
+        if b == 1:
+            rec.update(graph_ms=k_ms, plain_graph_ms=p_ms, bound_ms=b_ms,
+                       bound_by=b_by)
+        else:
+            rec.update(graph_ms_256=k_ms, plain_graph_ms_256=p_ms,
+                       bound_ms_256=b_ms)
+    rec['kernels_per_replay_b1'] = [nodes, plain_nodes]
+    del jitted
+    torch.cuda.empty_cache()
+    log(f'LM: phase {time.perf_counter() - t0:.1f} s')
+    return rec
+
+
 def main() -> None:
     global WORK
     WORK = tempfile.mkdtemp(prefix='chip_smoke_')
@@ -4280,6 +4450,7 @@ def run() -> None:
     (k1['launches_model_axis_serving'],
      k2['launches_model_axis_serving']) = phase_model_axis(pts, frames)
     k4 = phase_ransac(model, pts)
+    k5 = phase_lm_dual(model, pts)
     log(f'total: {time.perf_counter() - t_start:.1f} s')
     # graph_ms / plain_graph_ms (K1 and K2): the same calls replayed from a
     # CUDA graph, beside ms / plain_ms by eager calls as in earlier PRs;
@@ -4304,7 +4475,8 @@ def run() -> None:
     # 22's sharded pipeline over its last mesh (one per shard; 29 K2 each);
     # launches_model_axis_serving (K1 and K2): in one FUSED_CBAM serving
     # call of phase 23c's gathered (2, 2) model; for the RANSAC-EPnP
-    # kernel (phase 24) launches counts one serving call
+    # kernel (phase 24) and the dual LM kernel (phase 25) launches counts
+    # one serving call
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
             'graph_ms', 'plain_graph_ms', 'launches_two_stage',
@@ -4317,7 +4489,7 @@ def run() -> None:
             'graph_ms_256', 'plain_graph_ms_256', 'bound_ms_256',
             'kernels_per_replay_b1')
     print(json.dumps({'kernels': [{k: rec[k] for k in keys if k in rec}
-                                  for rec in (k1, k2, k3, k4)]}))
+                                  for rec in (k1, k2, k3, k4, k5)]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -65,12 +65,6 @@ struct Args {
   unsigned char* chosen;    // (B, N) bool: the best hypothesis's inliers, or null
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 __global__ void __launch_bounds__(kMaxThreads) ransac_epnp_kernel(const Args a) {
   __shared__ Problem pr;
   __shared__ float s_score[kMaxThreads];
@@ -189,36 +183,10 @@ __global__ void __launch_bounds__(kMaxThreads) ransac_epnp_kernel(const Args a) 
     for (int i = 0; i < 9; ++i) R[i] = s_R[i];
 #pragma unroll
     for (int i = 0; i < 3; ++i) t[i] = s_t[i];
-    float lam = 1e-3f;
-    for (int it = 0; it < a.lm_iters; ++it) {
-      float acc[kLmTerms];
-#pragma unroll
-      for (int i = 0; i < kLmTerms; ++i) acc[i] = 0.0f;
-      for (int n = tid; n < N; n += 32) {
-        if (s_w[n] != 0.0f) lm_point(pr, s_w[n], n, R, t, acc);
-      }
-#pragma unroll
-      for (int i = 0; i < kLmTerms; ++i) acc[i] = warp_sum(acc[i]);
-      float Rn[9], tn[3];
-      lm_candidate(acc, lam, R, t, Rn, tn);
-      float sq = 0.0f;
-      for (int n = tid; n < N; n += 32) {
-        if (s_w[n] != 0.0f) sq += lm_sq_residual(pr, s_w[n], n, Rn, tn);
-      }
-      sq = warp_sum(sq);
-      if (lm_accept(acc[kLmTerms - 1], sq, &lam)) {
-#pragma unroll
-        for (int i = 0; i < 9; ++i) R[i] = Rn[i];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) t[i] = tn[i];
-      }
-    }
-    float sq = 0.0f;
+    const float sq = lm_refine(pr, s_w, a.lm_iters, tid, 32, GroupSum(), R, t);
     for (int n = tid; n < N; n += 32) {
-      if (s_w[n] != 0.0f) sq += lm_sq_residual(pr, s_w[n], n, R, t);
       a.inliers[b * N + n] = final_inlier(pr, n, R, t, a.thr) ? 1 : 0;
     }
-    sq = warp_sum(sq);
     if (tid == 0) {
 #pragma unroll
       for (int i = 0; i < 9; ++i) a.R[b * 9 + i] = R[i];

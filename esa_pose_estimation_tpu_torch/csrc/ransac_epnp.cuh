@@ -1,6 +1,8 @@
 // The arithmetic of the RANSAC-EPnP kernel (csrc/ransac_epnp.cu): every
 // step of one problem as a function of one thread, host and device, so
 // that the kernel and a host build of the same functions compute alike.
+// The dual LM kernel (csrc/lm_dual.cu) shares the problem, the mirror,
+// the Kabsch fit and the LM.
 //
 // Each function follows ops/pnp.py, ops/epnp.py and core/linalg.py step
 // by step, in f32, with their constants (ridges, clamps, the 1e-6 depth
@@ -765,6 +767,27 @@ RE_HD bool better(float s, int h, float bs, int bh) {
 
 // ------------------------------------------------------------------ refit
 
+// ops/epnp.mirror_cloud: the N points of cam reflected across the plane
+// through their weighted centroid perpendicular to the line of sight, into
+// mir.  wsum: the sum of the weights w.
+RE_HD void mirror_cloud(const float* w, int N, float wsum, const float (*cam)[3],
+                        float (*mir)[3]) {
+  const float den = wsum + kEps;
+  float c[3] = {0.0f, 0.0f, 0.0f};
+  for (int n = 0; n < N; ++n) {
+    if (w[n] == 0.0f) continue;
+    const float wn = w[n] / den;
+    RE_UNROLL for (int d = 0; d < 3; ++d) c[d] += wn * cam[n][d];
+  }
+  const float cn = clamp_min(sqrtf(dot3(c, c)), kEps);
+  const float nv[3] = {c[0] / cn, c[1] / cn, c[2] / cn};
+  for (int n = 0; n < N; ++n) {
+    const float dd = (cam[n][0] - c[0]) * nv[0] + (cam[n][1] - c[1]) * nv[1]
+                     + (cam[n][2] - c[2]) * nv[2];
+    RE_UNROLL for (int d = 0; d < 3; ++d) mir[n][d] = cam[n][d] - 2.0f * dd * nv[d];
+  }
+}
+
 // epnp_from_mask with beta refinement on the weights w, from the packed
 // M^T M over them (destroyed): the reconstruction and its mirror, each
 // aligned by Kabsch, the lower residual kept.  cam and mir: scratch of
@@ -787,21 +810,7 @@ RE_HD void refit(const Problem& pr, const float* w, float* m, const float* basis
   for (int n = 0; n < N; ++n) {
     RE_UNROLL for (int d = 0; d < 3; ++d) cam[n][d] *= sign;
   }
-  // ops/epnp.mirror_cloud
-  const float den = wsum + kEps;
-  float c[3] = {0.0f, 0.0f, 0.0f};
-  for (int n = 0; n < N; ++n) {
-    if (w[n] == 0.0f) continue;
-    const float wn = w[n] / den;
-    RE_UNROLL for (int d = 0; d < 3; ++d) c[d] += wn * cam[n][d];
-  }
-  const float cn = clamp_min(sqrtf(dot3(c, c)), kEps);
-  const float nv[3] = {c[0] / cn, c[1] / cn, c[2] / cn};
-  for (int n = 0; n < N; ++n) {
-    const float dd = (cam[n][0] - c[0]) * nv[0] + (cam[n][1] - c[1]) * nv[1]
-                     + (cam[n][2] - c[2]) * nv[2];
-    RE_UNROLL for (int d = 0; d < 3; ++d) mir[n][d] = cam[n][d] - 2.0f * dd * nv[d];
-  }
+  mirror_cloud(w, N, wsum, cam, mir);
   float Rf[2][9], tf[2][3], e[2];
   RE_ROLLED for (int f = 0; f < 2; ++f) e[f] = kabsch_fit(pr, w, f ? mir : cam, Rf[f], tf[f]);
   const int pick = e[1] < e[0] ? 1 : 0;
@@ -904,6 +913,54 @@ RE_HD bool lm_accept(float sq, float new_sq, float* lam) {
   const bool ok = 0.5f * new_sq < 0.5f * sq;
   *lam = ok ? clamp_min(*lam / 3.0f, 1e-10f) : clamp_max(*lam * 4.0f, 1e8f);
   return ok;
+}
+
+// The sum of a value over the lanes that share one LM: a butterfly over
+// the warp on the card (every lane ends with the same bits); on the host,
+// where one lane owns every point, the value itself.
+struct GroupSum {
+  RE_HD float operator()(float v) const {
+#ifdef __CUDA_ARCH__
+    RE_UNROLL for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+#endif
+    return v;
+  }
+};
+
+// _lm_refine_batched from (R, t) on the weights w: `iters` damped
+// Gauss-Newton steps, R and t replaced.  The lanes of a group own the
+// points lane, lane + stride, ...; `sum` adds a value over the group
+// (GroupSum), so that every lane takes the same step.  Returns the sum of
+// r^2 at the final pose: the final cost is half of it.
+template <typename Sum>
+RE_HD float lm_refine(const Problem& pr, const float* w, int iters, int lane, int stride,
+                      Sum sum, float* R, float* t) {
+  const int N = pr.n;
+  float lam = 1e-3f;
+  RE_ROLLED for (int it = 0; it < iters; ++it) {
+    float acc[kLmTerms];
+    RE_UNROLL for (int i = 0; i < kLmTerms; ++i) acc[i] = 0.0f;
+    for (int n = lane; n < N; n += stride) {
+      if (w[n] != 0.0f) lm_point(pr, w[n], n, R, t, acc);
+    }
+    RE_UNROLL for (int i = 0; i < kLmTerms; ++i) acc[i] = sum(acc[i]);
+    float Rn[9], tn[3];
+    lm_candidate(acc, lam, R, t, Rn, tn);
+    float sq = 0.0f;
+    for (int n = lane; n < N; n += stride) {
+      if (w[n] != 0.0f) sq += lm_sq_residual(pr, w[n], n, Rn, tn);
+    }
+    sq = sum(sq);
+    if (lm_accept(acc[kLmTerms - 1], sq, &lam)) {
+      RE_UNROLL for (int i = 0; i < 9; ++i) R[i] = Rn[i];
+      RE_UNROLL for (int i = 0; i < 3; ++i) t[i] = tn[i];
+    }
+  }
+  float sq = 0.0f;
+  for (int n = lane; n < N; n += stride) {
+    if (w[n] != 0.0f) sq += lm_sq_residual(pr, w[n], n, R, t);
+  }
+  return sum(sq);
 }
 
 // reprojection_errors < thr for point n (core/camera.project_points).

@@ -10,6 +10,10 @@
 * :func:`lm_refine` replaces the Ceres ``cpnp.cpnp_m`` refinement: a
   fixed-iteration damped Gauss-Newton on a left SO(3) increment plus
   translation, minimizing confidence-weighted reprojection residuals.
+  :func:`refine_pose` is the serving path's final refinement around it
+  (weights, the mirror pose, the heatmap evidence); on CUDA tensors it is
+  one launch of ``csrc/lm_dual.cu`` (``ops/kernels/lm_dual.py``), on CPU
+  tensors :func:`refine_pose_plain`.
 
 Everything is static-shape and branch-free (accept/reject via ``where``),
 f32 in K-normalized coordinates, with Python loops of fixed length where
@@ -43,6 +47,7 @@ from esa_pose_estimation_tpu_torch.ops.epnp import (
     reprojection_errors,
     weighted_kabsch,
 )
+from esa_pose_estimation_tpu_torch.ops.kernels import lm_dual as lm_dual_kernel
 from esa_pose_estimation_tpu_torch.ops.kernels import (
     ransac_epnp as ransac_kernel,
 )
@@ -153,6 +158,21 @@ def lm_refine_dual(points_3d: torch.Tensor, points_2d: torch.Tensor,
     batch over a new leading axis of size 2; keep the one with lower cost
     or, with ``evidence_fn(R, t) -> (2, ...)``, higher evidence (the LM
     cost breaks ties within 1e-6)."""
+    R, t, pick = dual_candidates(points_3d, points_2d, weights, K, R0, t0,
+                                 iters, evidence_fn)
+    R = torch.gather(R, 0, pick[None, ..., None, None].expand(
+        (1,) + R.shape[1:]))[0]
+    t = torch.gather(t, 0, pick[None, ..., None].expand((1,) + t.shape[1:]))[0]
+    return R, t
+
+
+def dual_candidates(points_3d: torch.Tensor, points_2d: torch.Tensor,
+                    weights: torch.Tensor, K: torch.Tensor, R0: torch.Tensor,
+                    t0: torch.Tensor, iters: int = 20, evidence_fn=None
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`lm_refine_dual`'s two refined candidates, (2, ..., 3, 3) and
+    (2, ..., 3), the pose first, and the index of the one it keeps
+    (...)."""
     Rm, tm = mirror_pose(points_3d, R0, t0, weights)
     Rb = torch.stack([R0, Rm], dim=0)
     tb = torch.stack([t0, tm], dim=0)
@@ -165,10 +185,79 @@ def lm_refine_dual(points_3d: torch.Tensor, points_2d: torch.Tensor,
         tie = (ev[0] - ev[1]).abs() <= 1e-6 * (ev.abs().amax(dim=0) + 1e-12)
         pick = torch.where(tie, torch.argmin(cost, dim=0),
                            torch.argmax(ev, dim=0))
-    R = torch.gather(R, 0, pick[None, ..., None, None].expand(
-        (1,) + R.shape[1:]))[0]
-    t = torch.gather(t, 0, pick[None, ..., None].expand((1,) + t.shape[1:]))[0]
-    return R, t
+    return R, t, pick
+
+
+def refine_pose(points_3d: torch.Tensor, points_2d: torch.Tensor,
+                confidences: torch.Tensor, K: torch.Tensor,
+                R0: torch.Tensor, t0: torch.Tensor, iters: int = 20,
+                disambiguate: bool = True,
+                select: torch.Tensor | None = None,
+                inliers: torch.Tensor | None = None,
+                heatmaps: torch.Tensor | None = None,
+                rates: torch.Tensor | None = None,
+                origins: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The final refinement from RANSAC-EPnP's pose (the serving path's
+    stage ``refine``; see :func:`refine_pose_plain`): the plain version
+    for CPU tensors, one launch of the kernel (``ops/kernels/lm_dual.py``)
+    for any other, which raises on what it does not take."""
+    if points_3d.device.type == 'cpu':
+        return refine_pose_plain(points_3d, points_2d, confidences, K, R0,
+                                 t0, iters, disambiguate, select, inliers,
+                                 heatmaps, rates, origins)
+    return lm_dual_kernel.refine_pose(points_3d, points_2d, confidences, K,
+                                      R0, t0, iters, disambiguate, select,
+                                      inliers, heatmaps, rates, origins)
+
+
+def refine_weights(confidences: torch.Tensor,
+                   select: torch.Tensor | None = None,
+                   inliers: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`refine_pose_plain`'s weights (..., N): the confidences of
+    the inliers among the selection, or of the selection where fewer than
+    4 are left, zero elsewhere."""
+    sel = (torch.ones_like(confidences, dtype=torch.bool) if select is None
+           else select)
+    keep = sel
+    if inliers is not None:
+        keep = inliers & sel
+        enough = (keep.sum(-1) >= 4)[..., None]
+        keep = torch.where(enough, keep, sel)
+    return torch.where(keep, confidences, 0.0)
+
+
+def refine_pose_plain(points_3d: torch.Tensor, points_2d: torch.Tensor,
+                      confidences: torch.Tensor, K: torch.Tensor,
+                      R0: torch.Tensor, t0: torch.Tensor, iters: int = 20,
+                      disambiguate: bool = True,
+                      select: torch.Tensor | None = None,
+                      inliers: torch.Tensor | None = None,
+                      heatmaps: torch.Tensor | None = None,
+                      rates: torch.Tensor | None = None,
+                      origins: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Confidence-weighted LM from (R0, t0), in plain tensor code.
+
+    points_3d (..., N, 3); points_2d (..., N, 2) pixels; confidences
+    (..., N).  The weights are the confidences of RANSAC's ``inliers``
+    among the ``select``ed points, or of the selection where fewer than 4
+    are left (every point where ``select`` is None, the selection where
+    ``inliers`` is None), zero elsewhere.  With ``disambiguate`` the pose
+    and its weak-perspective mirror are refined and one kept
+    (:func:`lm_refine_dual`): by the :func:`heatmap_evidence` of
+    ``heatmaps`` (..., S, S, N) over the selection, placed by ``rates``
+    (heatmap pixels per frame pixel) and ``origins``, or without heatmaps
+    by cost; else :func:`lm_refine` alone.  Returns (R, t)."""
+    w = refine_weights(confidences, select, inliers)
+    if not disambiguate:
+        return lm_refine(points_3d, points_2d, w, K, R0, t0, iters=iters)
+    ev_fn = None
+    if heatmaps is not None:
+        ev_fn = heatmap_evidence(heatmaps.to(torch.float32), points_3d, K,
+                                 rates, origins, valid=select)
+    return lm_refine_dual(points_3d, points_2d, w, K, R0, t0, iters=iters,
+                          evidence_fn=ev_fn)
 
 
 def heatmap_evidence(heatmaps_nhwc: torch.Tensor, points_3d: torch.Tensor,
@@ -484,6 +573,6 @@ def solve_pose(points_3d: torch.Tensor, points_2d: torch.Tensor,
     init = ransac_epnp(points_3d, points_2d, K, generator, valid=sel,
                        reproj_threshold=reproj_threshold,
                        n_hypotheses=n_hypotheses, masks=masks)
-    w = torch.where(sel, confidences, 0.0)
-    refine = lm_refine_dual if disambiguate else lm_refine
-    return refine(points_3d, points_2d, w, K, init.R, init.t, iters=lm_iters)
+    return refine_pose(points_3d, points_2d, confidences, K, init.R, init.t,
+                       iters=lm_iters, disambiguate=disambiguate,
+                       select=select_mask)

@@ -167,22 +167,11 @@ def infer_poses_from_crops(model, crops: torch.Tensor, rates: torch.Tensor,
     with stage('refine'):
         # final confidence-weighted refinement over the RANSAC inliers,
         # falling back to the selection when the inlier set is degenerate
-        keep = init.inliers & sel
-        enough = (keep.sum(-1) >= 4)[..., None]
-        keep = torch.where(enough, keep, sel)
-        w = torch.where(keep, maxvals, 0.0)
-        if disambiguate:
-            ev_fn = None
-            if mirror_evidence == 'heatmap':
-                ev_fn = pnp_mod.heatmap_evidence(hm.to(torch.float32), p3,
-                                                 K, hm_rates, origins,
-                                                 valid=sel)
-            R, t = pnp_mod.lm_refine_dual(p3, uncropped, w, K, init.R,
-                                          init.t, iters=lm_iters,
-                                          evidence_fn=ev_fn)
-        else:
-            R, t = pnp_mod.lm_refine(p3, uncropped, w, K, init.R, init.t,
-                                     iters=lm_iters)
+        R, t = pnp_mod.refine_pose(
+            p3, uncropped, maxvals, K, init.R, init.t, iters=lm_iters,
+            disambiguate=disambiguate, select=sel, inliers=init.inliers,
+            heatmaps=hm if mirror_evidence == 'heatmap' else None,
+            rates=hm_rates, origins=origins)
     return PoseOutput(quat=rotmat_to_quat(R), trans=t, R=R,
                       keypoints_2d=uncropped, confidences=maxvals,
                       selected=sel, heatmaps=hm, rates=rates,

@@ -175,6 +175,7 @@ def _counts() -> tuple[tuple[str, object, str], ...]:
         fused_cbam,
     )
     from esa_pose_estimation_tpu_torch.models.vitpose import attention
+    from esa_pose_estimation_tpu_torch.ops.kernels.lm_dual import refine_pose
     from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
         peak_decode,
     )
@@ -184,6 +185,7 @@ def _counts() -> tuple[tuple[str, object, str], ...]:
     return (('k1', peak_decode, 'launches'), ('k2', fused_cbam, 'launches'),
             ('k3', branch_chain, 'launches'),
             ('ransac_epnp', ransac_epnp, 'launches'),
+            ('lm_dual', refine_pose, 'launches'),
             ('sdpa', attention, 'launches'),
             ('sdpa_tokens', attention, 'tokens'))
 

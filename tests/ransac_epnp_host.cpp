@@ -73,28 +73,8 @@ extern "C" int ransac_epnp_host(const float* p3, const float* p2, const float* K
     float cam[kMaxPoints][3], mir[kMaxPoints][3], R[9], t[3];
     refit(pr, w, m, basis + 12, cam, mir, R, t);
 
-    float lam = 1e-3f;
-    for (int it = 0; it < lm_iters; ++it) {
-      float acc[kLmTerms] = {};
-      for (int n = 0; n < N; ++n) {
-        if (w[n] != 0.0f) lm_point(pr, w[n], n, R, t, acc);
-      }
-      float Rn[9], tn[3];
-      lm_candidate(acc, lam, R, t, Rn, tn);
-      float sq = 0.0f;
-      for (int n = 0; n < N; ++n) {
-        if (w[n] != 0.0f) sq += lm_sq_residual(pr, w[n], n, Rn, tn);
-      }
-      if (lm_accept(acc[kLmTerms - 1], sq, &lam)) {
-        for (int i = 0; i < 9; ++i) R[i] = Rn[i];
-        for (int i = 0; i < 3; ++i) t[i] = tn[i];
-      }
-    }
-    float sq = 0.0f;
-    for (int n = 0; n < N; ++n) {
-      if (w[n] != 0.0f) sq += lm_sq_residual(pr, w[n], n, R, t);
-      inl_out[b * N + n] = final_inlier(pr, n, R, t, thr) ? 1 : 0;
-    }
+    const float sq = lm_refine(pr, w, lm_iters, 0, 1, GroupSum(), R, t);
+    for (int n = 0; n < N; ++n) inl_out[b * N + n] = final_inlier(pr, n, R, t, thr) ? 1 : 0;
     for (int i = 0; i < 9; ++i) R_out[b * 9 + i] = R[i];
     for (int i = 0; i < 3; ++i) t_out[b * 3 + i] = t[i];
     cost_out[b] = 0.5f * sq;

@@ -233,7 +233,7 @@ def test_counted_wrappers_are_the_kernels():
     assert [c[:2] for c in counts[:2]] == [('k1', peak_decode),
                                            ('k2', fused_cbam)]
     assert [label for label, _, _ in counts] == [
-        'k1', 'k2', 'k3', 'ransac_epnp', 'sdpa', 'sdpa_tokens']
+        'k1', 'k2', 'k3', 'ransac_epnp', 'lm_dual', 'sdpa', 'sdpa_tokens']
     assert all(isinstance(getattr(c, n), int) for _, c, n in counts)
 
 
