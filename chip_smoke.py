@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from ``esa_pose_estimation_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card, drives the
 serving path (``pipeline.infer_poses``) at full width on the shipped r5
 artifact through the kernels, checks the poses against the synthetic
-ground truth, and times the path.  Phases:
+ground truth, and times the path.  The phase numbers skip 6, 7 and 9;
+records and tests cite the others by number.  Phases:
 
   1. device      the card's name and power limit (nvidia-smi)
   2. build       nvcc of every kernel source, in parallel
@@ -25,22 +26,14 @@ ground truth, and times the path.  Phases:
                  must be <= 0.01), launch counts, no operation that makes
                  the host wait for the card; again with FUSED_CBAM
                  (heatmaps within 0.05, median <= 0.01)
-  6. throughput  images/s of infer_poses at batch 1 and 256, K2 off and on
-  7. profile     one batch-256 call under torch.profiler, FUSED_CBAM off
-                 then on: time per stage, kernel time, the device's idle
-                 share, the hrnet stage both ways, K2 kernels per forward
   8. K3          branch chain vs its plain version: bf16 (tensor-core
                  kernel) at (256, 64, 64, 32) k=4, two ragged shapes, zero
                  input, and two exact-tap cases that must be bit-equal;
                  f32 (FMA kernel) at (4, 16, 16, 32) k=3 and zero input;
                  then its main path, cli.mfu_experiments.chain_experiment()
                  at batch 256 and 512, timed beside the cuDNN chain
-  9. levers      the 64 frames of phase 5 again with MERGED_FUSE, then
-                 NHWC_DECODE, then INT8_SERVING on: change of heatmaps
-                 and poses, SPEED median; the lever's stage (forward or
-                 decode) timed on and off
- 10. eval        cli.eval_synthetic on 128 held-out frames, plain (median
-                 must be <= 0.01) and with --int8
+ 10. eval        cli.eval_synthetic on 128 held-out frames (median must
+                 be <= 0.01)
  11. two-stage   (a) 64 frames through pipeline.detect_and_infer with a
                  planted detector (the targets of the true boxes): boxes
                  within 64 px, no full-frame fallback, SPEED median <=
@@ -346,10 +339,10 @@ def plateau_maps(gen: torch.Generator, b: int, s: int, k: int
     return hm, (ya * s + xa).to(torch.int32)
 
 
-# the batches the main path gives K1: 1 and 256 (phases 6 and 11b), 32
+# the batches the main path gives K1: 1 and 256 (phases 11b and 20d), 32
 # (the eval, evaluate and submit commands' batch, phases 10 and 11c), 64
-# (phases 5, 9 and 11a); K1 and K2 choose their cluster size from the
-# batch, so each is checked
+# (phases 5 and 11a); K1 and K2 choose their cluster size from the batch,
+# so each is checked
 K1_BATCHES = (1, 32, 64, 256)
 # the keypoint counts of the LINEMOD heatmap eval at batch 16: the
 # command's default 9, and the 32 of QUALITY.md's run
@@ -551,8 +544,9 @@ def check_cbam(label: str, x, fc1, fc2, spw, r) -> float:
     return err
 
 
-# the batches the main path gives K2 with FUSED_CBAM on: 64 (phase 5), 1
-# and 256 (phases 6 and 7); it is timed at 64 and 256
+# the batches the main path gives K2 with FUSED_CBAM on: 64 (phases 5 and
+# 20), and 1 and 256, those of the benchmark's serving cells; it is timed
+# at 64 and 256
 K2_BATCHES = (1, 64, 256)
 
 
@@ -684,8 +678,8 @@ def check_no_host_wait(label: str, call) -> None:
 
 
 def phase_serving(model, pts):
-    """Returns the K1 and K2 launches, the 64 frames and the plain run's
-    output (phase 9 serves the same frames)."""
+    """Returns the K1 and K2 launches and the 64 frames, which later
+    phases serve again."""
     from esa_pose_estimation_tpu_torch.data import synthetic
     from esa_pose_estimation_tpu_torch.eval.speed_score import (
         speed_score_from_matrices,
@@ -745,47 +739,14 @@ def phase_serving(model, pts):
         f'{float(ang.max()):.3g} rad, translation rel max '
         f'{float(dt.max()):.3g}; SPEED median {med2:.5f} (limit 0.01)')
     # K2 computes the CBAM composite's function, so the heatmaps may move
-    # by bf16 rounding only, as for the exact levers of phase 9
+    # by bf16 rounding only
     if not torch.allclose(out2.heatmaps, out.heatmaps, rtol=0.05, atol=0.05):
         raise AssertionError(f'serving with FUSED_CBAM: heatmaps moved '
                              f'{hm_diff}')
     if not med2 <= 0.01:
         raise AssertionError(f'serving with FUSED_CBAM: SPEED median {med2} '
                              '> 0.01')
-    return k1, k2b, s, out
-
-
-def phase_throughput(model, pts) -> None:
-    from esa_pose_estimation_tpu_torch import pipeline
-    from esa_pose_estimation_tpu_torch.data import synthetic
-    from esa_pose_estimation_tpu_torch.models import layers
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
-    s = synthetic.make_sample(gen, pts, 256, render=False)
-    # the frames of one rendered sample batch of 16, tiled to 256 (render
-    # time is set-up, not serving)
-    frames16 = synthetic.render_frame(s.keypoints_2d[:16])
-    frames = frames16.repeat(16, 1, 1)
-    boxes = s.bbox[:16].repeat(16, 1)
-    rgen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
-    for fused in (False, True):
-        layers.FUSED_CBAM = fused
-        try:
-            for batch, iters in ((1, 10), (256, 5)):
-                f, bx = frames[:batch].contiguous(), boxes[:batch].contiguous()
-                for _ in range(2):
-                    pipeline.infer_poses(model, f, bx, pts, rgen)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(iters):
-                    pipeline.infer_poses(model, f, bx, pts, rgen)
-                torch.cuda.synchronize()
-                dt = time.perf_counter() - t0
-                log(f'throughput: batch {batch} FUSED_CBAM={fused}: '
-                    f'{batch * iters / dt:.1f} img/s '
-                    f'({dt / iters * 1e3:.1f} ms per call)')
-        finally:
-            layers.FUSED_CBAM = False
-    phase_profile(model, pts, frames, boxes, rgen)
+    return k1, k2b, s
 
 
 STAGES = ('detect', 'crop', 'hrnet', 'decode', 'ransac_epnp', 'refine')
@@ -795,46 +756,10 @@ K1_KERNEL = 'peak_decode_kernel'
 K2_KERNEL = 'cbam_cluster_kernel'
 
 
-def phase_profile(model, pts, frames, boxes, rgen) -> None:
-    """One batch-256 ``infer_poses`` under torch.profiler with FUSED_CBAM
-    off, then one with it on: per stage (the pipeline's record_function
-    ranges) its host time, the span of its device work and the kernel time
-    inside that span; for the call, kernel time over wall time; with K2
-    on, its device kernels per forward (at most 30).  The profiler's own
-    host cost slows the call, so the idle share here is an upper bound."""
-    from esa_pose_estimation_tpu_torch import pipeline
-    from esa_pose_estimation_tpu_torch.models import layers
-    hrnet = {}
-    for fused in (False, True):
-        layers.FUSED_CBAM = fused
-        try:
-            stages = profile_call(
-                lambda: pipeline.infer_poses(model, frames, boxes, pts, rgen),
-                f'profile FUSED_CBAM={fused}', top=8 if not fused else 3)
-            hrnet[fused] = None if stages is None else stages['hrnet']
-        finally:
-            layers.FUSED_CBAM = False
-    # the K2-per-forward check must not pass unmeasured
-    if hrnet[True] is None:
-        raise AssertionError('profile: no hrnet kernels recorded with '
-                             'FUSED_CBAM on, so K2 per forward is unmeasured')
-    k2 = hrnet[True]['k2']
-    off = ('not measured' if hrnet[False] is None else
-           f'{hrnet[False]["kernel_ms"]:.2f} ms of kernels in '
-           f'{hrnet[False]["kernels"]} launches')
-    log(f'profile hrnet stage at batch 256: FUSED_CBAM off {off}; on '
-        f'{hrnet[True]["kernel_ms"]:.2f} ms in {hrnet[True]["kernels"]} '
-        f'launches, {k2} of them K2 (one forward)')
-    if not 0 < k2 <= 30:
-        raise AssertionError(f'profile: {k2} K2 device kernels per forward '
-                             '(expected 1 to 30)')
-
-
-def profile_call(call, tag: str, top: int) -> dict | None:
+def profile_call(call, tag: str, top: int) -> None:
     """Profile one ``call()`` (after one unprofiled warm-up call); log its
     stages (the pipeline's record_function ranges that ran) and ``top``
-    kernels.  Returns ``{stage: {'host_ms', 'span_ms', 'kernel_ms',
-    'kernels', 'k2'}}``, or None when the profiler saw no device time."""
+    kernels, or that the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -851,12 +776,11 @@ def profile_call(call, tag: str, top: int) -> dict | None:
     kernels = [e for e in dev if e.name not in STAGES]
     if not kernels:
         log(f'{tag}: the profiler recorded no device time (not measured)')
-        return None
+        return
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     log(f'{tag} batch 256: wall {wall_ms:.1f} ms under the profiler, '
         f'{len(kernels)} kernels, {busy_ms:.1f} ms of kernel time, device '
         f'idle share {1 - busy_ms / wall_ms:.3f}')
-    stages = {}
     for name in STAGES:
         host = sum(e.time_range.elapsed_us() for e in events
                    if e.name == name and e.device_type == DeviceType.CPU)
@@ -870,9 +794,6 @@ def profile_call(call, tag: str, top: int) -> dict | None:
         log(f'{tag} stage {name}: host {host / 1e3:.2f} ms, device span '
             f'{(hi - lo) / 1e3:.2f} ms, kernels {k_ms:.2f} ms in '
             f'{len(inside)} launches')
-        stages[name] = {'host_ms': host / 1e3, 'span_ms': (hi - lo) / 1e3,
-                        'kernel_ms': k_ms, 'kernels': len(inside),
-                        'k2': sum(K2_KERNEL in e.name for e in inside)}
     by_name: dict[str, list[float]] = {}
     for e in kernels:
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
@@ -880,7 +801,6 @@ def profile_call(call, tag: str, top: int) -> dict | None:
     for name, times in ranked:
         log(f'{tag} kernel {sum(times) / 1e3:8.2f} ms {len(times):5d}x '
             f'{name[:90]}')
-    return stages
 
 
 def exact_tap_chain(gen: torch.Generator, k: int, tap: tuple[int, int]
@@ -1035,84 +955,13 @@ def phase_k3() -> dict:
             'launches': launches, 'max_abs_err': max_err, **rec}
 
 
-def _with_flag(owner, flag: str, value: bool, fn, *args):
-    setattr(owner, flag, value)
-    try:
-        with torch.no_grad():
-            return fn(*args)
-    finally:
-        setattr(owner, flag, False)
-
-
-def phase_levers(model, pts, s, base) -> None:
-    """The frames of phase 5 with each experimental lever on in turn.
-    MERGED_FUSE and NHWC_DECODE are exact rewrites: the heatmaps may move
-    by bf16 rounding only (rtol/atol 0.05) and the median stays <= 0.01.
-    INT8_SERVING is reported; a non-finite pose fails.  Each lever's stage
-    (the forward of the frames' crops, or the decode) is timed on and off
-    in turns."""
-    from esa_pose_estimation_tpu_torch.eval.speed_score import (
-        speed_score_from_matrices,
-    )
-    from esa_pose_estimation_tpu_torch.models import hrnet, layers
-    from esa_pose_estimation_tpu_torch.ops import crop, peak
-    from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import (
-        peak_decode,
-    )
-    from esa_pose_estimation_tpu_torch.utils.timing import paired_ms
-    t0 = time.perf_counter()
-    crops, _, _ = crop.crop_resize(s.image, s.bbox, 128,
-                                   img_w=s.image.shape[2],
-                                   img_h=s.image.shape[1])
-    x = crop.normalize(crops)[..., None]
-    for flag, owner, exact, stage, arg in (
-            ('MERGED_FUSE', hrnet, True, model, x),
-            ('NHWC_DECODE', peak, True, peak.decode_heatmaps_auto_nhwc,
-             base.heatmaps),
-            ('INT8_SERVING', layers, False, model, x)):
-        peak_decode.launches = 0
-        t1 = time.perf_counter()
-        out = _with_flag(owner, flag, True, serve, model, s, pts)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t1
-        launches = peak_decode.launches
-        if not (bool(torch.isfinite(out.R).all())
-                and bool(torch.isfinite(out.trans).all())):
-            raise AssertionError(f'{flag}: non-finite pose')
-        hm_diff = float((out.heatmaps - base.heatmaps).abs().max())
-        ang = _angles(base.R, out.R)
-        dt = ((base.trans - out.trans).norm(dim=-1)
-              / base.trans.norm(dim=-1))
-        med = statistics.median(speed_score_from_matrices(
-            out.R, out.trans, s.quat, s.trans).speed.cpu().tolist())
-        on_ms, off_ms = paired_ms(
-            lambda a: _with_flag(owner, flag, True, stage, a),
-            lambda a: _with_flag(owner, flag, False, stage, a), [(arg,)])
-        what = 'decode' if stage is not model else 'forward'
-        log(f'lever {flag}: heatmaps moved max {hm_diff:.4g}; poses moved '
-            f'median {float(ang.median()):.3g} rad / max '
-            f'{float(ang.max()):.3g} rad, translation rel max '
-            f'{float(dt.max()):.3g}; SPEED median {med:.5f}; K1 launches '
-            f'{launches}; {secs:.2f} s for {s.quat.shape[0]} frames; batch '
-            f'{s.quat.shape[0]} {what} {on_ms:.3f} ms on, {off_ms:.3f} ms off')
-        if exact:
-            if not torch.allclose(out.heatmaps, base.heatmaps, rtol=0.05,
-                                  atol=0.05):
-                raise AssertionError(f'{flag}: heatmaps moved {hm_diff}')
-            if not med <= 0.01:
-                raise AssertionError(f'{flag}: SPEED median {med} > 0.01')
-    log(f'levers: phase {time.perf_counter() - t0:.1f} s')
-
-
 def phase_eval() -> None:
-    """The held-out evaluation on the r5 artifact, 128 frames, plain and
-    with --int8; the plain median must be <= 0.01."""
+    """The held-out evaluation on the r5 artifact, 128 frames; the median
+    must be <= 0.01."""
     from esa_pose_estimation_tpu_torch.cli import eval_synthetic
     t0 = time.perf_counter()
     plain = eval_synthetic.main(['--artifact', ARTIFACT])
-    int8 = eval_synthetic.main(['--artifact', ARTIFACT, '--int8'])
     log(f'eval plain: {json.dumps(plain)}')
-    log(f'eval int8: {json.dumps(int8)}')
     if plain['median'] is None or not plain['median'] <= 0.01:
         raise AssertionError(f'eval: median {plain["median"]} > 0.01')
     log(f'eval: phase {time.perf_counter() - t0:.1f} s')
@@ -4420,10 +4269,8 @@ def run() -> None:
     k2 = phase_k2()
     model = load_hrnet_artifact(ARTIFACT, dtype=torch.bfloat16, device=DEVICE)
     pts = synthetic.spacecraft_points(device=DEVICE)
-    k1['launches'], k2['launches'], frames, base = phase_serving(model, pts)
-    phase_throughput(model, pts)
+    k1['launches'], k2['launches'], frames = phase_serving(model, pts)
     k3 = phase_k3()
-    phase_levers(model, pts, frames, base)
     phase_eval()
     t11 = time.perf_counter()
     k1['launches_two_stage'], planted = phase_planted(model, pts)

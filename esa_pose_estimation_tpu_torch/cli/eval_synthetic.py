@@ -2,7 +2,7 @@
 
     python -m esa_pose_estimation_tpu_torch.cli.eval_synthetic \\
         [--workdir runs/esa_syn --checkpoint best_rotate | \\
-         --artifact artifacts/esa_syn_r5.npz] [--perturb] [--int8] \\
+         --artifact artifacts/esa_syn_r5.npz] [--perturb] \\
         [--detector-workdir runs/det [--detector-downscale 8]] \\
         [--device cpu]
 
@@ -12,12 +12,10 @@ synthetic frames through the full serving path
 per batch) and prints one JSON line: median / p90 / mean SPEED score, the
 fraction of frames beating the reference leaderboard score (0.0193), the
 worst frame and its depth, and the mean pixel error of the selected
-keypoints.
-``--int8`` serves the head conv in int8 (``models.layers.INT8_SERVING``):
-this flag is the lever's accuracy gate.  ``--perturb`` scores the frames
-through ``data/augment.perturb_capture`` (exposure gain/offset, then
-gaussian noise or motion blur) applied to the full frames before the crop:
-the capture condition that ``cli/train --augment-photo`` trains through.
+keypoints.  ``--perturb`` scores the frames through
+``data/augment.perturb_capture`` (exposure gain/offset, then gaussian noise
+or motion blur) applied to the full frames before the crop: the capture
+condition that ``cli/train --augment-photo`` trains through.
 
 The frames come from ``data/synthetic.make_sample`` with a generator seeded
 from ``--seed`` and the batch index, so the frame set is not the JAX one:
@@ -99,10 +97,6 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument('--flip-tta', action='store_true',
                     help='average heatmaps with a mirrored-input forward '
                          'pass; 2x forward cost')
-    ap.add_argument('--int8', action='store_true',
-                    help='serve the head conv in int8 (models/layers.py '
-                         'INT8_SERVING; experimental): this flag is the '
-                         'accuracy gate, compare scores with and without')
     ap.add_argument('--perturb', action='store_true',
                     help='score the frames through capture-condition '
                          'perturbations (per-frame exposure gain/offset, '
@@ -133,7 +127,6 @@ def main(argv=None) -> dict:
     from esa_pose_estimation_tpu_torch.eval.speed_score import (
         speed_score_from_matrices,
     )
-    from esa_pose_estimation_tpu_torch.models import layers
     from esa_pose_estimation_tpu_torch.utils.artifact import (
         load_cli_artifact,
         load_cli_checkpoint,
@@ -159,45 +152,39 @@ def main(argv=None) -> dict:
     n_fallback = 0
     pix_err_sum, pix_err_n = 0.0, 0
     n_batches = -(-args.frames // args.batch_size)
-    old_int8 = layers.INT8_SERVING
-    layers.INT8_SERVING = args.int8
     serve = pipeline.make_jitted_pipeline(
         model, points_3d, crop_size=args.crop_size, conf_threshold=0.6,
         min_keypoints=0, n_hypotheses=args.n_hypotheses,
         flip_tta=args.flip_tta, mirror_evidence=args.mirror_evidence)
-    try:
-        for i in range(n_batches):
-            gen = torch.Generator(device=dev).manual_seed(
-                args.seed * 100_003 + i)
-            s = synthetic.make_sample(gen, points_3d, args.batch_size)
-            frames = s.image
-            if args.perturb:
-                frames = augment.perturb_capture(frames, augment.draw_perturb(
-                    generator(dev, args.seed, i, 4242), *frames.shape,
-                    device=dev))
-            boxes = s.bbox
-            if detector is not None:
-                det, ds = detector
-                boxes, det_scores = pipeline.detect_frames(
-                    det, frames, det.stride, ds, box_expand=1.1)
-                # detect_frames serves the full frame where no box
-                # scored above 0.05 (its score is then 0)
-                take = min(args.batch_size, args.frames - i * args.batch_size)
-                n_fallback += int((det_scores <= 0.05)[:take].sum())
-            out = serve(frames, boxes, gen)
-            sc = speed_score_from_matrices(out.R, out.trans, s.quat, s.trans)
-            all_scores.append((sc.score_t + sc.score_r).cpu().numpy())
-            depths.append(s.trans[:, 2].cpu().numpy())
-            # pixel error over the confidence-selected peaks, on exactly
-            # the --frames frames every other statistic covers
+    for i in range(n_batches):
+        gen = torch.Generator(device=dev).manual_seed(args.seed * 100_003 + i)
+        s = synthetic.make_sample(gen, points_3d, args.batch_size)
+        frames = s.image
+        if args.perturb:
+            frames = augment.perturb_capture(frames, augment.draw_perturb(
+                generator(dev, args.seed, i, 4242), *frames.shape,
+                device=dev))
+        boxes = s.bbox
+        if detector is not None:
+            det, ds = detector
+            boxes, det_scores = pipeline.detect_frames(
+                det, frames, det.stride, ds, box_expand=1.1)
+            # detect_frames serves the full frame where no box
+            # scored above 0.05 (its score is then 0)
             take = min(args.batch_size, args.frames - i * args.batch_size)
-            err = torch.linalg.vector_norm(out.keypoints_2d - s.keypoints_2d,
-                                           dim=-1)
-            m = out.selected
-            pix_err_sum += float((err * m)[:take].sum())
-            pix_err_n += int(m[:take].sum())
-    finally:
-        layers.INT8_SERVING = old_int8
+            n_fallback += int((det_scores <= 0.05)[:take].sum())
+        out = serve(frames, boxes, gen)
+        sc = speed_score_from_matrices(out.R, out.trans, s.quat, s.trans)
+        all_scores.append((sc.score_t + sc.score_r).cpu().numpy())
+        depths.append(s.trans[:, 2].cpu().numpy())
+        # pixel error over the confidence-selected peaks, on exactly
+        # the --frames frames every other statistic covers
+        take = min(args.batch_size, args.frames - i * args.batch_size)
+        err = torch.linalg.vector_norm(out.keypoints_2d - s.keypoints_2d,
+                                       dim=-1)
+        m = out.selected
+        pix_err_sum += float((err * m)[:take].sum())
+        pix_err_n += int(m[:take].sum())
     record = summarize(np.concatenate(all_scores)[:args.frames],
                        np.concatenate(depths)[:args.frames],
                        pix_err_sum, pix_err_n)

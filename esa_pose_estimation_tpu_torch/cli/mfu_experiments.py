@@ -1,9 +1,9 @@
 """Utilization experiments on one NVIDIA H100.
 
     python -m esa_pose_estimation_tpu_torch.cli.mfu_experiments [--chain |
-        --int8 | --int8-matmul | --cluster-sweep | --repeat | --k2-case |
-        --determinism | --sharded | (--ddp | --model-axis) [--coordinator
-        host:port --num-processes N --process-id i]]
+        --cluster-sweep | --repeat | --k2-case | --determinism | --sharded |
+        (--ddp | --model-axis) [--coordinator host:port --num-processes N
+        --process-id i]]
 
 Port of the JAX package's ``scripts/mfu_experiments.py``.  Every mode times
 on the card with CUDA events and reports its share of the card's bf16
@@ -18,13 +18,6 @@ CUDA device.  Modes:
   (the HRNet branch-1 shape), batch 256 and 512: the hand-written kernel
   (``experimental/branch_chain.py``), its plain version, and the library
   chain of 8 cuDNN bf16 channels_last convolutions.
-* ``--int8``: the head conv (3x3, 480 -> 480 at 64x64, batch 256) in bf16
-  against the int8 path of ``experimental/int8_head.py``, with and without
-  the activation quantization.
-* ``--int8-matmul``: bf16 against int8 products at the head conv's
-  contraction (the int8 one with its second operand row- and
-  column-major), and the head conv's int32 accumulator as the int8 path
-  computes it.
 * ``--cluster-sweep``: the two cluster kernels at batch 64 and 256 with
   each cluster size R (CTAs per image) that fits: the fused CBAM kernel
   (``experimental/cbam_fuse.py``) at hrnet_esa's five site shapes, then
@@ -263,65 +256,6 @@ def chain_experiment(batches=(256, 512), k: int = 4) -> dict:
         results[f'chain_b{batch}'] = row
         print(json.dumps({f'chain_b{batch}': row}), flush=True)
     return results
-
-
-def int8_experiment(batch: int = 256, hw: int = 64, c: int = 480) -> dict:
-    """The head conv in bf16 (cuDNN) against the int8 path, with the
-    activation quantization and without it."""
-    from esa_pose_estimation_tpu_torch.experimental import int8_head as q
-    dev = _require_cuda()
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    w = 0.05 * torch.randn((3, 3, c, c), generator=gen, device=dev)
-    x = torch.randn((batch, hw, hw, c), generator=gen, device=dev)
-    w_q, s_w = q.quantize_weights_per_channel(w)
-    x_bf = x.to(torch.bfloat16).permute(0, 3, 1, 2)   # channels_last NCHW
-    w_bf = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous()
-    x_q8, _ = q.quantize_activations(x)
-    flops = 2 * batch * hw * hw * 9 * c * c
-    out = {}
-    for name, fn, args in (
-            ('bf16', lambda a, b: F.conv2d(a, b, padding=1), (x_bf, w_bf)),
-            ('int8_with_quant', lambda a: q.int8_conv(a, w_q, s_w), (x,)),
-            ('int8_raw', q.int8_conv_acc, (x_q8, w_q))):
-        ms = min(cuda_ms(fn, [args]) for _ in range(3))
-        out[name] = _rate(flops, ms)
-        print(json.dumps({name: out[name]}), flush=True)
-    return out
-
-
-def int8_matmul_experiment() -> dict:
-    """bf16 against int8 products at the head conv's contraction (K = N =
-    480), and the head conv in int8 as one im2col product."""
-    from esa_pose_estimation_tpu_torch.experimental import int8_head as q
-    dev = _require_cuda()
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    m, k, n = 65536, 480, 480
-    a = torch.randn((m, k), generator=gen, device=dev)
-    b = 0.05 * torch.randn((k, n), generator=gen, device=dev)
-    a8 = torch.clamp(torch.round(a * 20), -127, 127).to(torch.int8)
-    b8 = torch.clamp(torch.round(b * 500), -127, 127).to(torch.int8)
-    flops = 2 * m * k * n
-    out = {}
-    for name, fn, args in (
-            ('mm_bf16', torch.matmul,
-             (a.to(torch.bfloat16), b.to(torch.bfloat16))),
-            ('mm_s8', torch._int_mm, (a8, b8)),
-            # the same product with the second operand column-major
-            ('mm_s8_b_colmajor', torch._int_mm, (a8, b8.t().contiguous().t()))):
-        ms = min(cuda_ms(fn, [args]) for _ in range(3))
-        out[name] = _rate(flops, ms)
-        print(json.dumps({name: out[name]}), flush=True)
-    batch, hw, c = 256, 64, 480
-    x8 = torch.randint(-127, 128, (batch, hw, hw, c), generator=gen,
-                       device=dev, dtype=torch.int8)
-    w8 = torch.randint(-127, 128, (3, 3, c, c), generator=gen, device=dev,
-                       dtype=torch.int8)
-    ms = min(cuda_ms(q.int8_conv_acc, [(x8, w8)]) for _ in range(3))
-    out['conv3x3_s8_im2col'] = _rate(2 * batch * hw * hw * 9 * c * c,
-                                           ms)
-    print(json.dumps({'conv3x3_s8_im2col':
-                      out['conv3x3_s8_im2col']}), flush=True)
-    return out
 
 
 # hrnet_esa's CBAM sites: (H, W, C, residual)
@@ -1793,8 +1727,6 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument('--chain', action='store_true')
-    mode.add_argument('--int8', action='store_true')
-    mode.add_argument('--int8-matmul', action='store_true')
     mode.add_argument('--cluster-sweep', action='store_true')
     mode.add_argument('--repeat', action='store_true')
     mode.add_argument('--k2-case', action='store_true')
@@ -1822,10 +1754,6 @@ def main(argv=None) -> dict:
     _require_cuda()
     if args.chain:
         results = chain_experiment()
-    elif args.int8:
-        results = int8_experiment()
-    elif args.int8_matmul:
-        results = int8_matmul_experiment()
     elif args.cluster_sweep:
         results = cluster_sweep()
     elif args.repeat:

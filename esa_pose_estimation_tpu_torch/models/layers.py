@@ -30,10 +30,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from esa_pose_estimation_tpu_torch.experimental.cbam_fuse import fused_cbam
-from esa_pose_estimation_tpu_torch.experimental.int8_head import (
-    int8_conv,
-    quantize_weights_per_channel,
-)
 from esa_pose_estimation_tpu_torch.parallel.tensor_parallel import (
     copy_to_model,
     gather_from_model,
@@ -263,49 +259,19 @@ def store_in_compute_dtype(model: nn.Module) -> nn.Module:
     return model
 
 
-# Serving-time int8 dispatch of the ConvBNs built with ``int8_serving=True``
-# (the flagship head conv; experimental/int8_head.py).  Module-level so
-# tests and chip_smoke.py can force either path.  Default False, as in the
-# JAX package: ``cli/eval_synthetic --int8`` is its accuracy gate.
-INT8_SERVING: bool = False
-
-
 class ConvBN(nn.Module):
-    """Conv (no bias) + BatchNorm (f32) [+ ReLU], cast to the model dtype.
-
-    ``int8_serving=True`` marks it for the int8 path (with ``INT8_SERVING``
-    set and the module not training): per-channel int8 weights times
-    per-sample int8 activations, int32 accumulation, dequantized, then the
-    frozen-BN affine in f32.  The parameters are the same either way.
-    """
+    """Conv (no bias) + BatchNorm (f32) [+ ReLU], cast to the model dtype."""
 
     def __init__(self, cin: int, features: int, kernel: int = 3,
                  stride: int = 1, relu: bool = True, dtype=torch.float32,
-                 int8_serving: bool = False, bn_momentum: float = 0.99):
+                 bn_momentum: float = 0.99):
         super().__init__()
         self.relu = relu
         self.dtype = dtype
-        self.stride = stride
-        self.int8_serving = int8_serving
         self.Conv_0 = Conv(cin, features, kernel, stride, dtype=dtype)
         self.BatchNorm_0 = BatchNorm(features, momentum=bn_momentum)
 
-    def _int8_forward(self, x: torch.Tensor) -> torch.Tensor:
-        # the stored kernel (f32 master, or bf16 in the serving form), as
-        # the JAX model quantizes its f32 parameter
-        w = self.Conv_0.weight.to(torch.float32).permute(2, 3, 1, 0)  # HWIO
-        w_q, s_w = quantize_weights_per_channel(w)
-        y = int8_conv(x.permute(0, 2, 3, 1), w_q, s_w, stride=self.stride)
-        bn = self.BatchNorm_0
-        inv = bn.weight / torch.sqrt(bn.running_var + bn.eps)
-        y = (y - bn.running_mean) * inv + bn.bias
-        if self.relu:
-            y = torch.relu(y)
-        return y.to(self.dtype).permute(0, 3, 1, 2)
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.int8_serving and INT8_SERVING and not self.training:
-            return self._int8_forward(x)
         x = self.BatchNorm_0(self.Conv_0(x))
         if self.relu:
             x = torch.relu(x)

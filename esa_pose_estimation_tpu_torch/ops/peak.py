@@ -4,8 +4,7 @@ Port of the JAX package's ``ops/peak.py`` (reference: inference.py:22-94,
 ``get_max_preds`` + ``my_taylor``).  :func:`decode_heatmaps` is the plain
 PyTorch version of the peak-decode kernel
 (``ops/kernels/peak_decode.py``, ``csrc/peak_decode.cu``); the serving
-path reaches the kernel through :func:`decode_heatmaps_auto_nhwc`, or the
-channels-last torch decode when ``NHWC_DECODE`` is set.
+path reaches the kernel through :func:`decode_heatmaps_auto_nhwc`.
 :func:`decode_heatmaps_dark` is the DARK decode (reference
 inference.py:154-170), in plain torch.
 
@@ -112,24 +111,12 @@ def decode_heatmaps_auto(heatmaps: torch.Tensor
     return coords.reshape(lead + (2,)), maxvals.reshape(lead)
 
 
-# Decode dispatch for channels-last model output: True = the reduce and
-# gather torch decode (experimental/nhwc_decode.py), False = the
-# peak-decode kernel.  Module-level so tests and chip_smoke.py can force
-# either path.  Default False, as in the JAX package.
-NHWC_DECODE: bool = False
-
-
 def decode_heatmaps_auto_nhwc(heatmaps: torch.Tensor
                               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Decode channels-last model output (B, S, S, K) -> (coords (B, K, 2),
     maxvals (B, K)).  The kernel reads the network's contiguous
     channels-last output as it is, so the serving path needs no
     transpose."""
-    if NHWC_DECODE:
-        from esa_pose_estimation_tpu_torch.experimental.nhwc_decode import (
-            decode_heatmaps_nhwc,
-        )
-        return decode_heatmaps_nhwc(heatmaps)
     return peak_decode(heatmaps)
 
 

@@ -97,15 +97,12 @@ def graph_pool(device: torch.device):
 
 
 def lever_flags() -> tuple[tuple[str, bool], ...]:
-    """The module flags the serving path reads while it runs, which JAX
-    reads at trace time, and whether the recorder stamps the stages
+    """Whether the residual blocks run the fused-CBAM kernel
+    (``models/layers.FUSED_CBAM``), which the serving path reads while it
+    runs, and whether the recorder stamps the stages
     (``obs/profiling.recording``): part of every key."""
-    from esa_pose_estimation_tpu_torch.models import hrnet, layers
-    from esa_pose_estimation_tpu_torch.ops import peak
+    from esa_pose_estimation_tpu_torch.models import layers
     return (('FUSED_CBAM', layers.FUSED_CBAM),
-            ('INT8_SERVING', layers.INT8_SERVING),
-            ('MERGED_FUSE', hrnet.MERGED_FUSE),
-            ('NHWC_DECODE', peak.NHWC_DECODE),
             ('RECORDING', profiling.recorder().on))
 
 

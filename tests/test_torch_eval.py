@@ -14,7 +14,6 @@ import pytest
 import torch
 
 from esa_pose_estimation_tpu_torch.cli import eval_synthetic
-from esa_pose_estimation_tpu_torch.models import layers
 
 
 @pytest.fixture(autouse=True, scope='module')
@@ -43,19 +42,6 @@ def test_r5_on_cpu_scores_like_the_jax_command(capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0].startswith('# loaded artifact')
     assert lines[-1].startswith('{"frames": 8')
-
-
-def test_int8_flag_is_served_and_restored(monkeypatch):
-    monkeypatch.setattr(layers, 'INT8_SERVING', False)
-    seen = []
-    real = layers.int8_conv
-    monkeypatch.setattr(layers, 'int8_conv',
-                        lambda *a, **k: seen.append(1) or real(*a, **k))
-    rec = eval_synthetic.main(['--artifact', ARTIFACT, '--device', 'cpu',
-                               '--frames', '3', '--batch-size', '2', '--int8'])
-    assert seen == [1, 1]                  # the head conv, once per batch
-    assert layers.INT8_SERVING is False
-    assert rec['frames'] == 3 and rec['median'] <= 0.01
 
 
 def _numpy_summary(scores, depths, pix_sum, pix_n):

@@ -47,11 +47,10 @@ from esa_pose_estimation_tpu_torch.core import camera as tcamera
 from esa_pose_estimation_tpu_torch.data import synthetic as tsyn
 from esa_pose_estimation_tpu_torch.eval.eval_cache import EvalCache
 from esa_pose_estimation_tpu_torch.experimental.cbam_fuse import fused_cbam
-from esa_pose_estimation_tpu_torch.models import hrnet, layers
+from esa_pose_estimation_tpu_torch.models import layers
 from esa_pose_estimation_tpu_torch.models.hrnet import HRNet
 from esa_pose_estimation_tpu_torch.ops import crop as tcrop
 from esa_pose_estimation_tpu_torch.ops import epnp as tepnp
-from esa_pose_estimation_tpu_torch.ops import peak
 from esa_pose_estimation_tpu_torch.ops import pnp as tpnp
 from esa_pose_estimation_tpu_torch.ops.kernels.peak_decode import peak_decode
 from esa_pose_estimation_tpu_torch.train import checkpoint as tckpt
@@ -191,12 +190,10 @@ def test_graph_key_follows_every_input_and_lever(monkeypatch):
         graphs.graph_key((model.eval(), x), {'n_hypotheses': 8, 'K': None}),
     ]
     model.train()
-    for owner, flag in ((layers, 'FUSED_CBAM'), (layers, 'INT8_SERVING'),
-                        (hrnet, 'MERGED_FUSE'), (peak, 'NHWC_DECODE')):
-        monkeypatch.setattr(owner, flag, True)
-        changed.append(graphs.graph_key((model, x),
-                                        {'n_hypotheses': 8, 'K': None}))
-        monkeypatch.setattr(owner, flag, False)
+    monkeypatch.setattr(layers, 'FUSED_CBAM', True)
+    changed.append(graphs.graph_key((model, x),
+                                    {'n_hypotheses': 8, 'K': None}))
+    monkeypatch.setattr(layers, 'FUSED_CBAM', False)
     assert len({base, *changed}) == len(changed) + 1
     with pytest.raises(TypeError, match='cannot draw'):
         graphs.graph_key((x,), {'generator': torch.Generator()})

@@ -3,11 +3,13 @@ kernel ``csrc/peak_decode.cu``) against the JAX decode and the TPU kernel
 run in the Pallas interpreter.
 
 Also an emulation of the kernel's band split and tie rule against
-``argmax_peaks``.
+``argmax_peaks``, and the DARK decode against the JAX one.
 
 Tolerance: integer peaks and maxvals bitwise equal; coords atol 1e-5 (the
 log and the stencil are the same f32 operations; only ``log``'s last bit
-may differ between the two libraries).
+may differ between the two libraries).  DARK: coordinates within 1e-4 px
+of JAX (f32 blur and log, summed in another order), the blurred maps
+within 1e-6.
 """
 
 import re
@@ -94,15 +96,27 @@ def test_plain_decode_matches_tpu_kernel_interpreted(case):
     _check(c_t, m_t, c_ref, m_ref)
 
 
-def test_channels_last_decode_matches_jax_nhwc_path():
+def _rendered():
     rng = np.random.default_rng(2)
     kps = rng.uniform(4, 60, size=(2, 7, 2)).astype(np.float32)
     nchw = np.asarray(heatmap.render_heatmaps(jnp.asarray(kps), 64, 64, 2.0))
-    nchw = nchw + rng.uniform(0, 1e-3, nchw.shape).astype(np.float32)
+    return nchw + rng.uniform(0, 1e-3, nchw.shape).astype(np.float32)
+
+
+# the serving entry point's cases: (B, K, H, W) maps, or (K, H, W) ones
+# as one image, transposed to the network's (B, H, W, K) output
+NHWC_CASES = {'rendered': _rendered, **CASES}
+
+
+@pytest.mark.parametrize('case', sorted(NHWC_CASES))
+def test_channels_last_decode_matches_jax_nhwc_path(case):
+    hm = NHWC_CASES[case]()
+    nchw = hm if hm.ndim == 4 else hm[None]
     nhwc = np.ascontiguousarray(nchw.transpose(0, 2, 3, 1))
     c_ref, m_ref = peak.decode_heatmaps_auto_nhwc(jnp.asarray(nhwc))
     c_t, m_t = tpeak.decode_heatmaps_auto_nhwc(torch.from_numpy(nhwc))
-    assert c_t.shape == (2, 7, 2) and m_t.shape == (2, 7)
+    assert c_t.shape == nchw.shape[:2] + (2,)
+    assert m_t.shape == nchw.shape[:2]
     _check(c_t, m_t, c_ref, m_ref)
     # the (..., H, W) entry point takes the same route
     c_a, m_a = tpeak.decode_heatmaps_auto(torch.from_numpy(nchw))
@@ -258,3 +272,39 @@ def test_launch_constants_mirror_the_cuda_source():
     assert launch_shape(1, 128, 128, 30, 132) == (16, 8, 4, 480)
     assert launch_shape(1, 20, 15, 7, 132) == (16, 2, 1, 448)
     assert launch_shape(64, 128, 128, 30, 132, aligned=False)[2:] == (1, 480)
+
+
+# ------------------------------------------------------------------- DARK
+
+
+def T(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _dark_maps(seed, n=4):
+    rng = np.random.default_rng(seed)
+    kps = rng.uniform(8, 56, size=(n, 2))
+    hm = np.asarray(heatmap.render_heatmaps(
+        jnp.asarray(kps, jnp.float32), 64, 64, 2.0), np.float64)
+    return np.clip(hm + rng.normal(scale=0.01, size=hm.shape), 0, 1
+                   ).astype(np.float32)
+
+
+@pytest.mark.parametrize('seed', [1, 2])
+def test_dark_decode_matches_jax(seed):
+    hm = _dark_maps(seed)
+    jc, jm = peak.decode_heatmaps_dark(jnp.asarray(hm))
+    tc, tm = tpeak.decode_heatmaps_dark(T(hm))
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(
+        tpeak.gaussian_modulate(T(hm)).numpy(),
+        np.asarray(peak.gaussian_modulate(jnp.asarray(hm))), atol=1e-6,
+        rtol=0)
+
+
+def test_dark_recovers_subpixel():
+    kps = np.array([[30.42, 21.77]], np.float32)
+    hm = np.asarray(heatmap.render_heatmaps(jnp.asarray(kps), 64, 64, 2.0))
+    coords, _ = tpeak.decode_heatmaps_dark(T(hm))
+    np.testing.assert_allclose(coords[0].numpy(), kps[0], atol=0.12)

@@ -104,7 +104,7 @@ def _write_split(root: Path, frames, boxes) -> str:
 
 
 def test_cpu_entry_points_never_touch_cuda(monkeypatch, tmp_path):
-    """infer_poses with every serving lever on, detect_and_infer with a
+    """infer_poses with the fused-CBAM lever on, detect_and_infer with a
     seeded detector, the eval, evaluate and submit commands, detector
     training and the two-stage eval on its output, and keypoint training
     from an SPD1 shard with and without the host crop, on CPU tensors: no
@@ -120,9 +120,8 @@ def test_cpu_entry_points_never_touch_cuda(monkeypatch, tmp_path):
     )
     from esa_pose_estimation_tpu_torch.data import shards
     from esa_pose_estimation_tpu_torch.data import synthetic as tsyn
-    from esa_pose_estimation_tpu_torch.models import hrnet, layers
+    from esa_pose_estimation_tpu_torch.models import layers
     from esa_pose_estimation_tpu_torch.models.detector import TinyDetector
-    from esa_pose_estimation_tpu_torch.ops import peak
     from esa_pose_estimation_tpu_torch.utils.artifact import (
         load_hrnet_artifact,
     )
@@ -135,9 +134,6 @@ def test_cpu_entry_points_never_touch_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, 'load', refuse)
     monkeypatch.setattr(_build, 'build_all', refuse)
     monkeypatch.setattr(layers, 'FUSED_CBAM', True)
-    monkeypatch.setattr(layers, 'INT8_SERVING', True)
-    monkeypatch.setattr(hrnet, 'MERGED_FUSE', True)
-    monkeypatch.setattr(peak, 'NHWC_DECODE', True)
     model = load_hrnet_artifact('artifacts/esa_syn_r5.npz',
                                 dtype=torch.float32, device='cpu')
     gen = torch.Generator().manual_seed(0)
@@ -151,11 +147,8 @@ def test_cpu_entry_points_never_touch_cuda(monkeypatch, tmp_path):
     assert torch.isfinite(out.quat).all()
     rec = eval_synthetic.main(['--artifact', 'artifacts/esa_syn_r5.npz',
                                '--device', 'cpu', '--frames', '2',
-                               '--batch-size', '2', '--int8'])
+                               '--batch-size', '2'])
     assert rec['frames'] + rec['nonfinite_frames'] == 2
-    # the int8 lever costs seconds per forward on the CPU, and the paths
-    # below add no int8 code
-    monkeypatch.setattr(layers, 'INT8_SERVING', False)
     det = TinyDetector(width=8).init_weights(
         torch.Generator().manual_seed(0)).eval()
     s2 = tsyn.make_sample(gen, tsyn.spacecraft_points(), 2, height=300,
