@@ -21,11 +21,16 @@ records and tests cite the others by number.  Phases:
   4. K2          fused CBAM vs its plain version, the five hrnet_esa map
                  shapes at batch 1, 64 and 256, with and without
                  residual, and three ragged shapes; two launches must be
-                 equal; timed per site and per forward at 64 and 256
-  5. serving     64 synthetic frames -> infer_poses, SPEED score (median
-                 must be <= 0.01), launch counts, no operation that makes
-                 the host wait for the card; again with FUSED_CBAM
-                 (heatmaps within 0.05, median <= 0.01)
+                 equal; the weights stored in bf16 (the 7x7 conv in
+                 channels_last) torch.equal to their f32 casts; at 256,
+                 the first frames alone (1, 16, 32, 64) and every
+                 cluster size that fits torch.equal to the whole batch;
+                 timed per site and per forward at 64 and 256
+  5. serving     64 synthetic frames -> infer_poses with FUSED_CBAM
+                 forced off, SPEED score (median must be <= 0.01), launch
+                 counts, no operation that makes the host wait for the
+                 card; again by default, K2 on (heatmaps within 0.05,
+                 median <= 0.01)
   8. K3          branch chain vs its plain version: bf16 (tensor-core
                  kernel) at (256, 64, 64, 32) k=4, two ragged shapes, zero
                  input, and two exact-tap cases that must be bit-equal;
@@ -116,7 +121,8 @@ records and tests cite the others by number.  Phases:
  18. reference   r5 exported under the reference's state_dict names,
      checkpoint  torch.save'd in the reference's wrapper, loaded and
                  imported into a fresh hrnet_esa: phase 5's 64 frames
-                 served with FUSED_CBAM off (K1) and on (K2, K1),
+                 served with FUSED_CBAM forced off (K1) and by default
+                 (K2, K1),
                  heatmaps, keypoints and poses torch.equal to r5
  19. tooling     (a) rasterize_color card vs CPU (masks and colour equal
                  off triangle edges, depth 1e-5 relative); (b)
@@ -130,10 +136,11 @@ records and tests cite the others by number.  Phases:
                  least the CUDA-event time; device_probe's count
  20. graphs      the compiled programs as CUDA graphs: (a) phase 5's
                  frames through pipeline.make_jitted_pipeline, every
-                 output torch.equal to eager infer_poses, FUSED_CBAM off
-                 and on, SPEED median <= 0.01; (b) K1 and K2 device
-                 kernels in one replay by the profiler (1 and 0, 1 and
-                 29); (c) 20 replays of the FUSED_CBAM graph bit-equal;
+                 output torch.equal to eager infer_poses, FUSED_CBAM
+                 forced off and by default, SPEED median <= 0.01; (b) K1
+                 and K2 device kernels in one replay by the profiler and
+                 by Graphed.stats() (1 and 0 off, 1 and 29 by default);
+                 (c) 20 replays of the default graph bit-equal;
                  (d) eager and replay in turns at batch 1 and 256: ms per
                  call, images/s, capture seconds, pool bytes, no host
                  wait around a replay; (e) the graphed EvalCache.infer
@@ -164,7 +171,8 @@ records and tests cite the others by number.  Phases:
                  process's cards (pipeline.make_sharded_pipeline,
                  train/state.make_sharded_eval_step): a mesh of every
                  visible card and, on a one-card machine, cuda:0 listed
-                 twice; phase 5's frames with K2 off and on: (a) each
+                 twice; phase 5's frames with K2 forced off and by
+                 default (on): (a) each
                  shard torch.equal to make_jitted_pipeline on its card,
                  slice and uniforms, the gathered poses within 1e-3 rad
                  and 1e-3 relative translation of one unsharded call, K1
@@ -187,8 +195,9 @@ records and tests cite the others by number.  Phases:
                  step); (b) while they run, a one-rank NCCL group:
                  the (1, 1) mesh through shard_state and the captured scan
                  torch.equal to phase 15b's program; (c) the gathered
-                 (2, 2) model serves phase 5's frames, FUSED_CBAM off and
-                 on: K1 once and K2 0 or 29 times by the counters and the
+                 (2, 2) model serves phase 5's frames, FUSED_CBAM forced
+                 off and by default: K1 once and K2 0 or 29 times by the
+                 counters and the
                  profiler, SPEED median <= 0.01
  24. RANSAC      the RANSAC-EPnP kernel (csrc/ransac_epnp.cu): (a) against
                  its plain version on the keypoints r5 serves for 256
@@ -227,7 +236,7 @@ rehearsal (in-train evals and cli.evaluate) and in phase 19b's
 cli.train_linemod from built DBs; for K1 and K2 in phase 18's imported
 reference checkpoint and, by the profiler, in one replay of phase 20's
 serving graph; in phase 21d's cli.train --train-pkl; for K1 and K2 in one
-call of phase 22's sharded pipeline; for K1 and K2 in one FUSED_CBAM call
+call of phase 22's sharded pipeline; for K1 and K2 in one default call
 of phase 23c's gathered model; a replay adds what
 its capture recorded to the counts, ``utils/graphs.py``; error
 against its plain version, times, bound); the last line is
@@ -494,16 +503,63 @@ CBAM_SITES = ((64, 64, 32, True, 10), (32, 32, 64, True, 8),
 
 
 def cbam_inputs(gen: torch.Generator, b: int, h: int, w: int, c: int):
-    """x, residual (bf16 NHWC) and the site's f32 weights."""
-    hid = c // 16
+    """x, residual (bf16 NHWC) and the site's conv weights as the serving
+    form stores them: bf16, the 7x7 conv in channels_last memory."""
+    from esa_pose_estimation_tpu_torch.cli.mfu_experiments import (
+        cbam_weights,
+    )
     x = torch.randn((b, h, w, c), generator=gen, device=DEVICE
                     ).to(torch.bfloat16)
     res = torch.randn((b, h, w, c), generator=gen, device=DEVICE
                       ).to(torch.bfloat16)
-    fc1 = 0.3 * torch.randn((c, hid), generator=gen, device=DEVICE)
-    fc2 = 0.3 * torch.randn((hid, c), generator=gen, device=DEVICE)
-    spw = 0.2 * torch.randn((7, 7, 2), generator=gen, device=DEVICE)
-    return x, res, fc1, fc2, spw
+    fc1, fc2, spw = cbam_weights(gen, c, DEVICE, torch.bfloat16)
+    return x, res, fc1, fc2, spw.contiguous(memory_format=torch.channels_last)
+
+
+def check_stored_weights(label: str, x, fc1, fc2, spw, r) -> None:
+    """K2 reading bf16 weights where they are stored against K2 on their
+    f32 casts (dense): bf16 -> f32 is exact, so the outputs are equal."""
+    from esa_pose_estimation_tpu_torch.experimental.cbam_fuse import (
+        fused_cbam,
+    )
+    got = fused_cbam(x, fc1, fc2, spw, r)
+    cast = fused_cbam(x, *(t.float().contiguous() for t in (fc1, fc2, spw)),
+                      r)
+    torch.cuda.synchronize()
+    if not torch.equal(got, cast):
+        diff = float((got.float() - cast.float()).abs().max())
+        raise AssertionError(f'K2 {label}: bf16 stored weights give another '
+                             f'output than their f32 casts, max diff {diff}')
+
+
+def check_batch_invariant(label: str, x, fc1, fc2, spw, r) -> None:
+    """K2 on the first frames of x alone, at every batch the main path
+    gives it and in every cluster size that fits, against K2 on all of
+    x: the same bits, since every sum is taken in the site's own order."""
+    from esa_pose_estimation_tpu_torch.experimental.cbam_fuse import (
+        _launch,
+        cluster_config,
+    )
+    b, h, w, c = x.shape
+    whole = _launch(x, fc1, fc2, spw, r)
+    runs = [(f'batch {n}', _launch(x[:n], fc1, fc2, spw,
+                                   None if r is None else r[:n]), n)
+            for n in (1, 16, 32, 64) if n < b]
+    for ranks in (1, 2, 4, 8, 16):
+        try:
+            cluster_config(b, h, w, c, c // 16, ranks=ranks)
+        except RuntimeError:            # does not fit: not a launch
+            continue
+        runs.append((f'R {ranks}', _launch(x, fc1, fc2, spw, r,
+                                           ranks=ranks), b))
+    torch.cuda.synchronize()
+    for what, out, n in runs:
+        if not torch.equal(out, whole[:n]):
+            diff = float((out.float() - whole[:n].float()).abs().max())
+            raise AssertionError(f'K2 {label}: {what} gives other bits than '
+                                 f'the whole batch, max diff {diff}')
+    log(f'K2 {label}: the same bits at batches 1, 16, 32, 64 and at '
+        f'{len(runs) - 4} cluster sizes')
 
 
 def check_cbam(label: str, x, fc1, fc2, spw, r) -> float:
@@ -544,9 +600,8 @@ def check_cbam(label: str, x, fc1, fc2, spw, r) -> float:
     return err
 
 
-# the batches the main path gives K2 with FUSED_CBAM on: 64 (phases 5 and
-# 20), and 1 and 256, those of the benchmark's serving cells; it is timed
-# at 64 and 256
+# the batches the main path gives K2: 64 (phases 5 and 20), and 1 and 256,
+# those of the benchmark's serving cells; it is timed at 64 and 256
 K2_BATCHES = (1, 64, 256)
 
 
@@ -584,9 +639,13 @@ def phase_k2() -> dict:
                 f'{cfg["smem_bytes"]} B shared memory each, '
                 f'{cfg["max_active_clusters"]} clusters at once')
             for r in (res, None):
-                max_err = max(max_err, check_cbam(
-                    f'{b}x{h}x{w}x{c} residual={r is not None}', x, fc1,
-                    fc2, spw, r))
+                label = f'{b}x{h}x{w}x{c} residual={r is not None}'
+                max_err = max(max_err, check_cbam(label, x, fc1, fc2, spw, r))
+                check_stored_weights(label, x, fc1, fc2, spw, r)
+                if b == K2_BATCHES[-1]:
+                    check_batch_invariant(label, x, fc1, fc2, spw, r)
+            log(f'K2 {b}x{h}x{w}x{c}: bf16 stored weights torch.equal to '
+                f'their f32 casts, with and without residual')
             if b == 1:
                 continue
             r = res if serving_res else None
@@ -599,7 +658,7 @@ def phase_k2() -> dict:
                                          graph=True)
             del bufs
             n = x.numel()
-            nbytes = n * 2 * (3 if r is not None else 2) + (2 * c * hid + 98) * 4
+            nbytes = n * 2 * (3 if r is not None else 2) + (2 * c * hid + 98) * 2
             ops = n * (8 if r is not None else 6) + b * h * w * 200 + b * 4 * c * hid
             b_ms, b_by = bound(nbytes, ops)
             log(f'K2 time {b}x{h}x{w}x{c} residual={r is not None} (x{count} '
@@ -694,7 +753,7 @@ def phase_serving(model, pts):
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
     s = synthetic.make_sample(gen, pts, 64)
 
-    def run(fused: bool):
+    def run(fused: bool | None):
         layers.FUSED_CBAM = fused
         try:
             peak_decode.launches = 0
@@ -703,7 +762,7 @@ def phase_serving(model, pts):
             torch.cuda.synchronize()
             return out, peak_decode.launches, fused_cbam.launches
         finally:
-            layers.FUSED_CBAM = False
+            layers.FUSED_CBAM = None
 
     out, k1, k2 = run(False)
     if k1 != 1 or k2 != 0:
@@ -721,30 +780,31 @@ def phase_serving(model, pts):
         raise AssertionError(f'serving: SPEED median {med} > 0.01')
     check_no_host_wait('serving', lambda: serve(model, s, pts))
 
-    out2, k1b, k2b = run(True)
+    out2, k1b, k2b = run(None)            # the default: K2 on the card
     if k1b != 1 or k2b != 29:
-        raise AssertionError(f'serving with FUSED_CBAM: K1 launches {k1b}, '
+        raise AssertionError(f'serving by default (K2): K1 launches {k1b}, '
                              f'K2 {k2b} (expected 1 and 29)')
     if not bool(torch.isfinite(out2.R).all()):
-        raise AssertionError('serving with FUSED_CBAM: non-finite pose')
+        raise AssertionError('serving by default (K2): non-finite pose')
     ang = _angles(out.R, out2.R)
     dt = ((out.trans - out2.trans).norm(dim=-1)
           / out.trans.norm(dim=-1))
     med2 = statistics.median(speed_score_from_matrices(
         out2.R, out2.trans, s.quat, s.trans).speed.cpu().tolist())
     hm_diff = float((out.heatmaps - out2.heatmaps).abs().max())
-    log(f'serving FUSED_CBAM: K1 launches {k1b}, K2 launches {k2b} (29 per '
-        f'forward); heatmaps moved max {hm_diff:.4g} (rtol/atol 0.05); poses '
+    log(f'serving by default (K2): K1 launches {k1b}, K2 launches {k2b} '
+        f'(29 per forward); heatmaps moved max {hm_diff:.4g} (rtol/atol '
+        f'0.05); poses '
         f'moved median {float(ang.median()):.3g} rad / max '
         f'{float(ang.max()):.3g} rad, translation rel max '
         f'{float(dt.max()):.3g}; SPEED median {med2:.5f} (limit 0.01)')
     # K2 computes the CBAM composite's function, so the heatmaps may move
     # by bf16 rounding only
     if not torch.allclose(out2.heatmaps, out.heatmaps, rtol=0.05, atol=0.05):
-        raise AssertionError(f'serving with FUSED_CBAM: heatmaps moved '
+        raise AssertionError(f'serving by default (K2): heatmaps moved '
                              f'{hm_diff}')
     if not med2 <= 0.01:
-        raise AssertionError(f'serving with FUSED_CBAM: SPEED median {med2} '
+        raise AssertionError(f'serving by default (K2): SPEED median {med2} '
                              '> 0.01')
     return k1, k2b, s
 
@@ -2578,9 +2638,9 @@ def phase_reference_checkpoint(model, s, pts) -> tuple[int, int]:
     """18: the r5 weights exported under the reference's names, saved as
     the reference saves them (the 'net' wrapper, 'module.' prefixes),
     loaded and imported into a fresh hrnet_esa on the card, then phase 5's
-    64 frames served with FUSED_CBAM off (K1) and on (K2 and K1): heatmaps
-    and poses torch.equal to serving r5 directly.  Returns K1's and K2's
-    launches in the imported model's FUSED_CBAM run."""
+    64 frames served with FUSED_CBAM forced off (K1) and by default (K2 and
+    K1): heatmaps and poses torch.equal to serving r5 directly.  Returns
+    K1's and K2's launches in the imported model's default run."""
     import tempfile
 
     from esa_pose_estimation_tpu_torch.experimental.cbam_fuse import (
@@ -2605,7 +2665,7 @@ def phase_reference_checkpoint(model, s, pts) -> tuple[int, int]:
     imported = layers.store_in_compute_dtype(imported.to(
         device=DEVICE, memory_format=torch.channels_last)).eval()
     launches = (0, 0)
-    for fused in (False, True):
+    for fused in (False, None):           # forced off, the default (K2)
         layers.FUSED_CBAM = fused
         try:
             want = serve(model, s, pts)
@@ -2614,12 +2674,12 @@ def phase_reference_checkpoint(model, s, pts) -> tuple[int, int]:
             torch.cuda.synchronize()
             launches = (peak_decode.launches, fused_cbam.launches)
         finally:
-            layers.FUSED_CBAM = False
+            layers.FUSED_CBAM = None
         for field in ('heatmaps', 'keypoints_2d', 'R', 'trans', 'quat'):
             if not torch.equal(getattr(got, field), getattr(want, field)):
                 raise AssertionError(f'reference checkpoint, FUSED_CBAM '
                                      f'{fused}: {field} differs from r5')
-        if launches != ((1, 29) if fused else (1, 0)):
+        if launches != ((1, 0) if fused is False else (1, 29)):
             raise AssertionError(f'reference checkpoint, FUSED_CBAM {fused}:'
                                  f' K1/K2 launches {launches}')
         log(f'reference checkpoint 18, FUSED_CBAM {fused}: {len(sd)} torch '
@@ -2916,7 +2976,7 @@ def phase_tooling() -> int:
     return launches
 
 
-GRAPH_REPEATS = 20           # 20c: replays of the FUSED_CBAM graph
+GRAPH_REPEATS = 20           # 20c: replays of the default (K2) graph
 GRAPH_TIMING = ((1, 10), (256, 5))   # 20d: (batch, calls per run)
 SCAN_STEPS = 8                       # 20f: steps in one graph
 # 20f: one bf16 rounding step, 2^-8: hrnet_esa computes in bf16, and a
@@ -2954,9 +3014,10 @@ def replay_kernels(call, kernels: tuple[str, ...] = (K1_KERNEL, K2_KERNEL)
 
 def graphs_serving(model, pts, s) -> tuple[int, int]:
     """20a-c: phase 5's frames and seed through make_jitted_pipeline and
-    through eager infer_poses, FUSED_CBAM off and on; the device kernels
-    of one replay; 20 replays of the FUSED_CBAM graph.  Returns K1's and
-    K2's device kernels in one FUSED_CBAM replay."""
+    through eager infer_poses, FUSED_CBAM forced off and by default; the
+    device kernels of one replay, by the profiler and by
+    ``Graphed.stats()``; 20 replays of the default graph.  Returns K1's
+    and K2's device kernels in one default replay."""
     from esa_pose_estimation_tpu_torch import pipeline
     from esa_pose_estimation_tpu_torch.eval.speed_score import (
         speed_score_from_matrices,
@@ -2974,7 +3035,7 @@ def graphs_serving(model, pts, s) -> tuple[int, int]:
         return jitted(s.image, s.bbox, torch.Generator(
             device=DEVICE).manual_seed(SEED + 3))
     per_replay = {}
-    for fused in (False, True):
+    for fused in (False, None):           # forced off, the default (K2)
         layers.FUSED_CBAM = fused
         try:
             eager = serve(model, s, pts)
@@ -2996,43 +3057,46 @@ def graphs_serving(model, pts, s) -> tuple[int, int]:
             peak_decode.launches = fused_cbam.launches = 0
             k1, k2, n = replay_kernels(graph_call)
             counted = (peak_decode.launches, fused_cbam.launches)
-            want = (1, 29 if fused else 0)
+            stats = jitted.graphs.stats()[-1]['launches']
+            want = (1, 0 if fused is False else 29)
             log(f'graphs 20a FUSED_CBAM={fused}: {s.image.shape[0]} frames, '
                 f'every output of two replays torch.equal to eager '
                 f'infer_poses; SPEED median {med:.5f} (limit 0.01); first '
                 f'call (warm-up, capture, replay) {t_first:.2f} s')
             log(f'graphs 20b FUSED_CBAM={fused}: one replay holds {n} device '
                 f'kernels, K1 {k1}, K2 {k2} (profiler; expected {want}); '
-                f'the counters added {counted}')
-            if (k1, k2) != want or counted != want:
+                f'the counters added {counted}; Graphed.stats() k1 '
+                f'{stats["k1"]}, k2 {stats["k2"]}')
+            if ((k1, k2) != want or counted != want
+                    or (stats['k1'], stats['k2']) != want):
                 raise AssertionError(f'graphs 20b: kernels in one replay '
                                      f'{(k1, k2)}, counted {counted}, '
-                                     f'expected {want}')
+                                     f'stats {stats}, expected {want}')
             per_replay[fused] = (k1, k2)
-            if fused:
+            if fused is None:
                 outs = [graph_call() for _ in range(GRAPH_REPEATS)]
                 torch.cuda.synchronize()
                 diff = [(i, _unequal(outs[0], o))
                         for i, o in enumerate(outs[1:], 1)
                         if _unequal(outs[0], o)]
                 log(f'graphs 20c fault 2: {GRAPH_REPEATS} replays of the '
-                    f'FUSED_CBAM graph at batch {s.image.shape[0]} '
+                    f'default graph at batch {s.image.shape[0]} '
                     f'({29 * GRAPH_REPEATS} K2 launches back to back): '
                     f'{len(diff)} differ from the first {diff}')
                 if diff:
                     raise AssertionError(f'graphs 20c: replays differ {diff}')
         finally:
-            layers.FUSED_CBAM = False
+            layers.FUSED_CBAM = None
     for st in jitted.graphs.stats():
         log(f'graphs capture at batch {s.image.shape[0]}: {st["seconds"]:.2f} '
             f's, pool +{st["pool_bytes"] / 2**20:.0f} MiB, launches per '
             f'replay {st["launches"]}')
-    return per_replay[True]
+    return per_replay[None]
 
 
 def graphs_timing(model, pts) -> None:
     """20d: eager and replay in turns (eager, graph, graph, eager) at
-    batch 1 and 256, given box, K2 off: ms per call, images/s, capture
+    batch 1 and 256, given box, K2 by default: ms per call, images/s, capture
     seconds and pool bytes, and no host wait around a replay."""
     from esa_pose_estimation_tpu_torch import pipeline
     from esa_pose_estimation_tpu_torch.data import synthetic
@@ -3280,7 +3344,7 @@ def graphs_command() -> None:
 
 def phase_graphs(model, pts, s) -> tuple[int, int]:
     """20: the compiled programs as CUDA graphs.  Returns K1's and K2's
-    device kernels in one FUSED_CBAM replay of the serving graph."""
+    device kernels in one default replay of the serving graph."""
     t0 = time.perf_counter()
     replay = graphs_serving(model, pts, s)
     graphs_timing(model, pts)
@@ -3658,16 +3722,16 @@ def sharded_eval(model, pts, mesh) -> None:
 
 
 def phase_sharded(model, pts, s) -> tuple[int, int]:
-    """22: serving and the eval step over the data axis of one process's
-    cards (every visible card; on a one-card machine also cuda:0 listed
-    twice), hrnet_esa from r5 in bf16 on phase 5's 64 frames, K2 off and
-    on: each shard torch.equal to its card's make_jitted_pipeline on that
-    slice and those uniforms, the gathered poses within 1e-3 rad and 1e-3
-    relative translation of one unsharded call, K1 (and K2) once per
-    shard by the counters and by the profiler's devices, no host wait
-    inside a call; host-to-device ms of the frames from pinned memory;
-    22b the sharded eval step.  Returns K1's and K2's launches in one
-    FUSED_CBAM call on the last mesh."""
+    """22: serving and the eval step over the data axis of one process's cards
+    (every visible card; on a one-card machine also cuda:0 listed twice),
+    hrnet_esa from r5 in bf16 on phase 5's 64 frames, K2 forced off and by
+    default (on): each shard torch.equal to its card's make_jitted_pipeline on
+    that slice and those uniforms, the gathered poses within 1e-3 rad and 1e-3
+    relative translation of one unsharded call, K1 (and K2) once per shard by
+    the counters and by the profiler's devices, no host wait inside a call;
+    host-to-device ms of the frames from pinned memory; 22b the sharded eval
+    step. Returns K1's and K2's launches in one default (K2) call on the last
+    mesh."""
     from esa_pose_estimation_tpu_torch.cli import mfu_experiments as mfu
     from esa_pose_estimation_tpu_torch.models import layers
     from esa_pose_estimation_tpu_torch.parallel import mesh as mesh_mod
@@ -3677,7 +3741,7 @@ def phase_sharded(model, pts, s) -> tuple[int, int]:
         meshes.append(mesh_mod.make_mesh(devices=[DEVICE] * 2))
     launches = (0, 0)
     for mesh in meshes:
-        for fused in (False, True):
+        for fused in (False, None):       # forced off, the default (K2)
             layers.FUSED_CBAM = fused
             try:
                 rec = mfu.sharded_serving_check(model, pts, mesh, s.image,
@@ -3688,7 +3752,7 @@ def phase_sharded(model, pts, s) -> tuple[int, int]:
                     f'sharded {len(mesh.devices)} FUSED_CBAM={fused}',
                     lambda: rec['sharded'](s.image, s.bbox, gen))
             finally:
-                layers.FUSED_CBAM = False
+                layers.FUSED_CBAM = None
             launches = rec['launches']
             log(f'sharded 22a {rec["devices"]} FUSED_CBAM={fused}: '
                 f'{rec["batch"]} frames, every shard torch.equal to its '
@@ -3881,9 +3945,9 @@ def model_axis_one_rank(dev) -> None:
 
 def model_axis_serving(sd, pts, s) -> tuple[int, int]:
     """23c: the gathered (2, 2) model in the serving form serves phase 5's
-    frames, FUSED_CBAM off and on: K1 once and K2 0 or 29 times, by the
-    counters and by the profiler's kernels; SPEED median <= 0.01.
-    Returns the FUSED_CBAM run's launches."""
+    frames, FUSED_CBAM forced off and by default: K1 once and K2 0 or 29
+    times, by the counters and by the profiler's kernels; SPEED median <=
+    0.01.  Returns the default run's launches."""
     from esa_pose_estimation_tpu_torch.cli import mfu_experiments as mfu
     from esa_pose_estimation_tpu_torch.eval.speed_score import (
         speed_score_from_matrices,
@@ -3897,7 +3961,7 @@ def model_axis_serving(sd, pts, s) -> tuple[int, int]:
     )
     model = mfu.serving_form(sd, DEVICE)
     launches = (0, 0)
-    for fused in (False, True):
+    for fused in (False, None):           # forced off, the default (K2)
         layers.FUSED_CBAM = fused
         try:
             peak_decode.launches = fused_cbam.launches = 0
@@ -3906,10 +3970,10 @@ def model_axis_serving(sd, pts, s) -> tuple[int, int]:
             launches = (peak_decode.launches, fused_cbam.launches)
             k1, k2, _ = replay_kernels(lambda: serve(model, s, pts))
         finally:
-            layers.FUSED_CBAM = False
+            layers.FUSED_CBAM = None
         med = statistics.median(speed_score_from_matrices(
             out.R, out.trans, s.quat, s.trans).speed.cpu().tolist())
-        want = (1, 29 if fused else 0)
+        want = (1, 0 if fused is False else 29)
         log(f'model axis 23c: the gathered (2, 2) model serves phase 5\'s '
             f'{s.image.shape[0]} frames, FUSED_CBAM={fused}: K1, K2 '
             f'launches {launches}, device kernels {(k1, k2)} (want {want});'
@@ -3925,7 +3989,7 @@ def phase_model_axis(pts, s) -> tuple[int, int]:
     """23: the model axis on one card: 23a four gloo processes at (2, 2)
     against one process; 23b, while they run, the (1, 1) mesh against
     phase 15b's program; 23c the gathered model served through K1 and K2.
-    Returns K1's and K2's launches in 23c's FUSED_CBAM call."""
+    Returns K1's and K2's launches in 23c's default call."""
     t0 = time.perf_counter()
     dev = torch.device('cuda', torch.cuda.current_device())
     sd = model_axis_gloo(dev, lambda: model_axis_one_rank(dev))
@@ -4312,15 +4376,15 @@ def run() -> None:
     # launches_rehearsal_train_eval / launches_rehearsal_evaluate (K1): in
     # the in-train evals and in cli.evaluate of phase 17's
     # cli.dress_rehearsal; launches_imported_checkpoint (K1 and K2): in one
-    # FUSED_CBAM serving call of phase 18's imported reference checkpoint;
+    # default serving call of phase 18's imported reference checkpoint;
     # launches_linemod_db_eval (K1): in phase 19b's cli.train_linemod from
     # the DBs db_builder made; launches_graph_replay (K1 and K2): device
-    # kernels in one replay of phase 20's FUSED_CBAM serving graph, by the
+    # kernels in one replay of phase 20's default serving graph, by the
     # profiler; launches_pickle_train_eval (K1): in the in-train evaluate of
     # phase 21d's cli.train --train-pkl (two batches of 32 frames);
-    # launches_sharded_serving (K1 and K2): in one FUSED_CBAM call of phase
+    # launches_sharded_serving (K1 and K2): in one default call of phase
     # 22's sharded pipeline over its last mesh (one per shard; 29 K2 each);
-    # launches_model_axis_serving (K1 and K2): in one FUSED_CBAM serving
+    # launches_model_axis_serving (K1 and K2): in one default serving
     # call of phase 23c's gathered (2, 2) model; for the RANSAC-EPnP
     # kernel (phase 24) and the dual LM kernel (phase 25) launches counts
     # one serving call

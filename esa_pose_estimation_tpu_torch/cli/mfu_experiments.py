@@ -29,12 +29,14 @@ CUDA device.  Modes:
   bound by bytes); the rows carry the cluster's shared memory or threads
   and how many such clusters the card holds at once.  It times the device
   by CUDA-graph replay (``utils/timing.graph_ms``), so the host's cost per
-  call does not count.
+  call does not count.  Each CBAM row also says whether its R gives the
+  same bits as the chosen R, and the sweep stops on one that does not.
 * ``--repeat``: determinism of the two cluster kernels.  The fused CBAM
   kernel at the five sites and the peak-decode kernel on Gaussian maps,
   at every batch serving gives them (1, 64, 256; 1, 32, 64, 256), each
-  launched many times on one input: the count of launches whose output
-  is not bit-equal to the first.  Nothing is timed.
+  launched many times on one input (the CBAM kernel with its weights
+  stored in bf16 and in f32): the count of launches whose output is not
+  bit-equal to the first.  Nothing is timed.
 * ``--determinism``: the training steps' determinism (ROADMAP.md
   section 3, fault 4).  One step each of ``hrnet_esa`` from r5 at batch
   32, the ``TinyDetector`` at the JAX round-5 recipe and ResNet-8s in both
@@ -93,9 +95,9 @@ CUDA device.  Modes:
   one process (``pipeline.make_sharded_pipeline``).  First K1, K2 and K3
   on each card with card 0 left current, each card's output bit-equal to
   card 0's.  Then ``hrnet_esa`` from r5 in bf16 at 64 and at 1 frame a
-  card, K2 off and on: each card's shard ``torch.equal`` to
-  ``make_jitted_pipeline`` on that card with that slice and those
-  uniforms, and whether it is bit-equal served on card 0 too; how far
+  card, K2 forced off and by default (on): each card's shard
+  ``torch.equal`` to ``make_jitted_pipeline`` on that card with that slice
+  and those uniforms, and whether it is bit-equal served on card 0 too; how far
   the gathered poses lie from one unsharded call on card 0 (reported:
   its network runs at the whole batch, a shard's at a slice); K1 (and
   K2) once per shard by the counters and by the profiler's kernels on
@@ -263,6 +265,18 @@ CBAM_SITES = ((64, 64, 32, True), (32, 32, 64, True), (16, 16, 128, True),
               (8, 8, 256, True), (128, 128, 64, False))
 
 
+def cbam_weights(gen: torch.Generator, c: int, dev,
+                 dtype: torch.dtype = torch.float32) -> tuple:
+    """A site's conv weights as the model stores them: ChannelAttention's
+    (C/16, C, 1, 1) and (C, C/16, 1, 1), SpatialAttention's (1, 2, 7, 7)."""
+    hid = c // 16
+    return tuple((scale * torch.randn(shape, generator=gen, device=dev)
+                  ).to(dtype)
+                 for scale, shape in ((0.3, (hid, c, 1, 1)),
+                                      (0.3, (c, hid, 1, 1)),
+                                      (0.2, (1, 2, 7, 7))))
+
+
 def cluster_sweep(batches=(64, 256), s: int = 128, k: int = 30) -> dict:
     """K2 at each site and K1 on Gaussian (B, s, s, k) maps, at each batch,
     with every cluster size that fits."""
@@ -284,10 +298,9 @@ def cluster_sweep(batches=(64, 256), s: int = 128, k: int = 30) -> dict:
                             ).to(torch.bfloat16)
             res = (torch.randn((b, h, w, c), generator=gen, device=dev
                                ).to(torch.bfloat16) if with_res else None)
-            fc1 = 0.3 * torch.randn((c, hid), generator=gen, device=dev)
-            fc2 = 0.3 * torch.randn((hid, c), generator=gen, device=dev)
-            spw = 0.2 * torch.randn((7, 7, 2), generator=gen, device=dev)
+            fc1, fc2, spw = cbam_weights(gen, c, dev, torch.bfloat16)
             chosen = cbam_fuse.cluster_config(b, h, w, c, hid)['ranks']
+            want = cbam_fuse._launch(x, fc1, fc2, spw, res)
             # enough input copies to cycle through more than the 50 MB L2
             per_call = x.numel() * 2 * (3 if with_res else 2)
             bufs = [tuple(a.clone() if a is not None else None
@@ -302,10 +315,16 @@ def cluster_sweep(batches=(64, 256), s: int = 128, k: int = 30) -> dict:
                     print(json.dumps({'site': [b, h, w, c], 'ranks': r,
                                       'skipped': str(exc)}), flush=True)
                     continue
+                # every R gives the same bits: the sums' order is the site's
+                cfg['equal_to_chosen'] = torch.equal(
+                    cbam_fuse._launch(x, fc1, fc2, spw, res, ranks=r), want)
                 row(f'cbam_b{b}_{h}x{w}x{c}_r{r}', {'site': [b, h, w, c]}, r,
                     chosen, lambda *a, r=r: cbam_fuse._launch(*a, ranks=r),
                     bufs, cfg)
-            del x, res, bufs
+                if not cfg['equal_to_chosen']:
+                    raise AssertionError(f'K2 at {b}x{h}x{w}x{c}: R = {r} '
+                                         f'gives other bits than R = {chosen}')
+            del x, res, bufs, want
     ax = torch.arange(s, dtype=torch.float32, device=dev)
     for b in batches:
         kp = torch.rand((b, k, 2), generator=gen, device=dev) * (s - 4) + 2
@@ -326,7 +345,8 @@ def cluster_sweep(batches=(64, 256), s: int = 128, k: int = 30) -> dict:
 def repeat_experiment(cbam_batches=(1, 64, 256),
                       peak_batches=(1, 32, 64, 256)) -> dict:
     """Launches of K2 and K1 on one input that differ from the first:
-    60 launches at batch 1 and 64, 20 at 256."""
+    60 launches at batch 1 and 64, 20 at 256; K2 with the weights stored in
+    bf16 (the serving form) and in f32 (masters)."""
     from esa_pose_estimation_tpu_torch.experimental import cbam_fuse
     from esa_pose_estimation_tpu_torch.ops.kernels import peak_decode as pd
     dev = _require_cuda()
@@ -347,17 +367,14 @@ def repeat_experiment(cbam_batches=(1, 64, 256),
 
     for b in cbam_batches:
         for h, w, c, _ in CBAM_SITES:
-            hid = c // 16
             x, res = (torch.randn((b, h, w, c), generator=gen, device=dev
                                   ).to(torch.bfloat16) for _ in range(2))
-            weights = (0.3 * torch.randn((c, hid), generator=gen, device=dev),
-                       0.3 * torch.randn((hid, c), generator=gen, device=dev),
-                       0.2 * torch.randn((7, 7, 2), generator=gen,
-                                         device=dev))
-            for r in (res, None):
-                count(f'cbam_b{b}_{h}x{w}x{c}_res{int(r is not None)}',
-                      cbam_fuse._launch, (x, *weights, r), 20 if b >= 256
-                      else 60)
+            for dtype in (torch.bfloat16, torch.float32):
+                weights = cbam_weights(gen, c, dev, dtype)
+                for r in (res, None):
+                    count(f'cbam_b{b}_{h}x{w}x{c}_res{int(r is not None)}_'
+                          f'{str(dtype)[6:]}', cbam_fuse._launch,
+                          (x, *weights, r), 20 if b >= 256 else 60)
     for b in peak_batches:
         hm = torch.rand((b, 128, 128, 30), generator=gen, device=dev)
         count(f'peak_b{b}', pd._launch, (hm,), 20 if b >= 256 else 60)
@@ -372,9 +389,7 @@ def k2_case() -> dict:
     b, h, w, c = 64, 64, 64, 32
     x, res = (torch.randn((b, h, w, c), generator=gen, device=dev
                           ).to(torch.bfloat16) for _ in range(2))
-    fc1 = 0.3 * torch.randn((c, c // 16), generator=gen, device=dev)
-    fc2 = 0.3 * torch.randn((c // 16, c), generator=gen, device=dev)
-    spw = 0.2 * torch.randn((7, 7, 2), generator=gen, device=dev)
+    fc1, fc2, spw = cbam_weights(gen, c, dev, torch.bfloat16)
     outs = [cbam_fuse._launch(x, fc1, fc2, spw, res) for _ in range(2)]
     torch.cuda.synchronize()
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1449,7 +1464,7 @@ def sharded_serving_check(model, pts, mesh, frames, boxes, seed: int,
     if pose_tol is not None and not (ang <= pose_tol and rel <= pose_tol):
         raise AssertionError(f'sharded serving: gathered poses {ang} rad, '
                              f'{rel} relative from one unsharded call')
-    fused = layers.FUSED_CBAM
+    fused = layers.FUSED_CBAM is not False     # the rule takes K2 on a card
     want_k = (len(mesh.devices), 29 * len(mesh.devices) if fused else 0)
     peak_decode.launches = fused_cbam.launches = 0
     sharded(frames, boxes, gen())
@@ -1584,9 +1599,7 @@ def kernels_on_every_card() -> list[dict]:
     hm = torch.rand((64, 128, 128, 30), generator=g)
     x2 = torch.randn((64, 64, 64, 32), generator=g).to(torch.bfloat16)
     res = torch.randn((64, 64, 64, 32), generator=g).to(torch.bfloat16)
-    fc1, fc2 = (0.3 * torch.randn((32, 2), generator=g),
-                0.3 * torch.randn((2, 32), generator=g))
-    spw = 0.2 * torch.randn((7, 7, 2), generator=g)
+    fc1, fc2, spw = cbam_weights(g, 32, 'cpu', torch.bfloat16)
     x3 = torch.randn((8, 64, 64, 32), generator=g).to(torch.bfloat16)
     w3, b3 = make_test_chain(g)
     calls = {
@@ -1651,14 +1664,14 @@ def sharded_experiment() -> dict:
     for per_card in SHARDED_PER_CARD:
         s = synthetic.make_sample(torch.Generator(device=dev0).manual_seed(
             SEED + per_card), pts, per_card * n)
-        for fused in (False, True):
+        for fused in (False, None):           # forced off, the default
             layers.FUSED_CBAM = fused
             try:
-                emit(f'check_{per_card}_a_card_k2_{int(fused)}',
+                emit(f'check_{per_card}_a_card_k2_{int(fused is None)}',
                      sharded_serving_check(model, pts, mesh, s.image, s.bbox,
                                            SEED + 1))
             finally:
-                layers.FUSED_CBAM = False
+                layers.FUSED_CBAM = None
             torch.cuda.empty_cache()
     emit('held_out', held_out_speed(model, pts, mesh))
     if not results['held_out']['median'] <= 0.01:

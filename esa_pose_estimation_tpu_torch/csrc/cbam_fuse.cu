@@ -21,12 +21,14 @@
 // one per CTA of the cluster, and the CTAs meet through distributed shared
 // memory (DSMEM).  Each CTA:
 //   1. loads its band of x into shared memory once, with 16-byte cp.async,
-//      and the MLP and conv weights beside it;
-//   2. takes the per-channel sum and max of its band;
-//   3. after a cluster barrier, gathers every rank's partials through DSMEM
-//      (all threads at once) and adds them in rank order: no float atomics,
-//      so the result does not depend on scheduling, and every CTA computes
-//      the same gate; then runs the C -> C/16 -> C MLP and the sigmoid;
+//      and the MLP and conv weights beside it as f32, read in the dtype
+//      (f32 or bf16) and layout in which the convs store them;
+//   2. takes the per-channel sum and max of each row of its band;
+//   3. after a cluster barrier, reads every row's sums and every rank's
+//      maxima through DSMEM (all threads at once) and adds the rows in
+//      fixed chunks of the image, in order: no float atomics, so the
+//      result does not depend on scheduling, and every CTA computes the
+//      same gate; then runs the C -> C/16 -> C MLP and the sigmoid;
 //   4. writes the per-pixel channel mean and max of x*cg into a
 //      zero-bordered window of its rows plus 3 halo rows on each side;
 //   5. after a second cluster barrier, copies the halo rows of the pooled
@@ -43,6 +45,14 @@
 // unless another CTA on the SM is loading or storing meanwhile.  Hence at
 // most 42 registers a thread (three CTAs per SM where shared memory allows)
 // and R chosen per site by measurement.
+//
+// Every sum is taken in an order fixed by (H, W, C) alone: a row's in
+// step 2, the rows' in step 3 (in chunks of ceil(H / (kThreads / C))
+// rows), a pixel's channels in step 4 (whose lanes per pixel follow the
+// site rule's R, not the launch's).  So an image's
+// output does not depend on R, which follows the batch, nor on the other
+// images of its batch: a frame served alone, in a batch or in a shard
+// gives the same bits.
 //
 // R per site (kSiteRanks, mirrored in the Python module as _SITE_RANKS) is
 // the fastest at batch 256 (cli/mfu_experiments --cluster-sweep, which
@@ -90,12 +100,16 @@ constexpr int kErrShape = -1;     // C not a power of two in [8, 8 * kThreads]
 constexpr int kErrSmem = -2;      // the band does not fit a block's shared memory
 constexpr int kErrCluster = -3;   // no cluster of R such CTAs can be placed
 constexpr int kErrDevice = -4;    // device index past kMaxDevices
+constexpr int kErrDtype = -5;     // weight dtype code neither of the two below
 constexpr int kMaxDevices = 64;   // cards of one process with host state
 
+// the stored weights' dtype, as the wrapper codes it
+constexpr int kWeightF32 = 0;
+constexpr int kWeightBf16 = 1;
+
 // Shared-memory layout of one CTA, in bytes from the dynamic base.  One
-// region serves in turn the slot partials (step 2), every rank's gathered
-// partials (step 3), and the pooled-map window with the spatial gate
-// (steps 4 to 7).
+// region serves in turn the row partials (step 2), the chunk sums (step
+// 3), and the pooled-map window with the spatial gate (steps 4 to 7).
 struct Layout {
   long long x, red, win, sg, psum, pmax, avg, mx, gate, hav, hmx, w, fc1, fc2,
       bytes;
@@ -109,11 +123,13 @@ __host__ __device__ inline long long max3(long long a, long long b, long long c)
   return a > b ? (a > c ? a : c) : (b > c ? b : c);
 }
 
-__host__ __device__ inline Layout layout(int ranks, int band, int W, int C, int hid) {
+__host__ __device__ inline Layout layout(int ranks, int band, int H, int W, int C,
+                                         int hid, int tpr) {
   const int vpp = C / 8;                                    // 16-byte vectors per pixel
-  const int rs = vpp < 32 ? kWarps : kThreads / vpp;        // reduced slots
-  const long long red = round16(8LL * rs * C);              // slot sums, maxima
-  const long long all = round16(8LL * ranks * C);           // every rank's partials
+  const int kpw = vpp >= 32 ? 1 : 32 / vpp;                 // step 2's k per warp
+  const int ng = tpr > kpw ? tpr / kpw : 1;                 // k groups per row
+  const long long red = round16(8LL * band * ng * C);       // row partials
+  const long long all = round16(4LL * (C > kThreads ? C : kThreads));  // chunk sums
   const long long win = round16(8LL * (band + 6) * (W + 6));  // pooled mean, max
   const long long sg = round16(4LL * band * W);             // spatial gate
   Layout l;
@@ -123,16 +139,16 @@ __host__ __device__ inline Layout layout(int ranks, int band, int W, int C, int 
   l.win = o;
   l.sg = o + win;
   o += max3(red, all, win + sg);
-  l.psum = o; o += round16(4LL * C);                        // published partials
-  l.pmax = o; o += round16(4LL * C);
+  l.psum = o; o += round16(4LL * band * C);                 // published row sums
+  l.pmax = o; o += round16(4LL * C);                        // and maxima
   l.avg = o;  o += round16(4LL * C);
   l.mx = o;   o += round16(4LL * C);
   l.gate = o; o += round16(4LL * C);                        // channel gate cg
   l.hav = o;  o += round16(4LL * hid);
   l.hmx = o;  o += round16(4LL * hid);
   l.w = o;    o += round16(4LL * 98);                       // 7x7x2 conv
-  l.fc1 = o;  o += round16(4LL * C * hid);                  // MLP weights
-  l.fc2 = o;  o += round16(4LL * C * hid);
+  l.fc1 = o;  o += round16(4LL * C * hid);                  // MLP weights,
+  l.fc2 = o;  o += round16(4LL * C * hid);                  // (hid, C) each
   l.bytes = o;
   return l;
 }
@@ -150,6 +166,9 @@ __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
     f[2 * i + 1] = t.y;
   }
 }
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ uint4 pack8(const float* f) {
   uint4 u;
@@ -178,15 +197,21 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// at most 42 registers a thread, so that three CTAs fit an SM
+// at most 42 registers a thread, so that three CTAs fit an SM.  The
+// weights are the convs' own tensors, in their stored dtype Wt: fc1 the
+// (hid, C) rows of ChannelAttention's first 1x1 conv, fc2 the (C, hid)
+// rows of its second, spw SpatialAttention's (1, 2, 7, 7) 7x7 conv at
+// element strides (sc, sy, sx) over (channel, row, column).  tpr and g
+// fix the order of steps 2 and 4 (row_threads and pool_lanes).
+template <typename Wt>
 __global__ void __launch_bounds__(kThreads, 3)
 cbam_cluster_kernel(const __nv_bfloat16* __restrict__ x,
                     const __nv_bfloat16* __restrict__ res,
-                    const float* __restrict__ fc1,
-                    const float* __restrict__ fc2,
-                    const float* __restrict__ spw,
+                    const Wt* __restrict__ fc1,
+                    const Wt* __restrict__ fc2,
+                    const Wt* __restrict__ spw, int sc, int sy, int sx,
                     __nv_bfloat16* __restrict__ out, int H, int W, int C,
-                    int hid, int band) {
+                    int hid, int band, int tpr, int g) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int n_ranks = static_cast<int>(cluster.num_blocks());
@@ -202,7 +227,7 @@ cbam_cluster_kernel(const __nv_bfloat16* __restrict__ x,
   const int ws = W + 6;                    // window row stride
   const int plane = (band + 6) * ws;       // one pooled map's window
 
-  const Layout l = layout(n_ranks, band, W, C, hid);
+  const Layout l = layout(n_ranks, band, H, W, C, hid, tpr);
   uint4* s_x = reinterpret_cast<uint4*>(smem + l.x);
   float* s_red = reinterpret_cast<float*>(smem + l.red);
   float* s_win = reinterpret_cast<float*>(smem + l.win);
@@ -228,96 +253,125 @@ cbam_cluster_kernel(const __nv_bfloat16* __restrict__ x,
     const uint4* src = reinterpret_cast<const uint4*>(x + off0);
     for (int i = tid; i < n16; i += kThreads) cp_async_16(s_x + i, src + i);
   }
-  if (tid < 98) s_w[tid] = spw[tid];
-  for (int i = tid; i < C * hid; i += kThreads) {
-    s_fc1[i] = fc1[i];
-    s_fc2[i] = fc2[i];
+  // s_w[(ky * 7 + kx) * 2 + ch], s_fc1[j * C + c] and s_fc2[j * C + c]:
+  // fc1 copied row by row, fc2 transposed, a thread a channel's row of
+  // hid, so that the MLP below reads both without bank conflicts
+  if (tid < 98) {
+    const int k = tid >> 1;
+    s_w[tid] = to_f32(spw[(tid & 1) * sc + (k / 7) * sy + (k % 7) * sx]);
+  }
+  for (int i = tid; i < C * hid; i += kThreads) s_fc1[i] = to_f32(fc1[i]);
+  for (int c = tid; c < C; c += kThreads) {
+    for (int j = 0; j < hid; ++j) s_fc2[j * C + c] = to_f32(fc2[c * hid + j]);
   }
   cp_async_wait_all();
   __syncthreads();
 
-  // 2. per-channel sum and max of the band: thread (slot, v) takes vector
-  // v (channels 8v..8v+7) of pixels slot, slot + slots, ...
-  const int rs = vpp < 32 ? kWarps : kThreads / vpp;
+  // 2. per-channel sum and max of each row of the band, in an order that
+  // W and C fix: thread (k, v) of a row takes vector v (channels
+  // 8v..8v+7) of the columns k, k + tpr, ...; a butterfly folds the k of
+  // a warp, and the warps' groups are added in order after the barrier
+  const int kpw = vpp >= 32 ? 1 : 32 / vpp;   // k per warp
+  const int kf = min(tpr, kpw);               // k folded by the butterfly
+  const int ng = tpr / kf;                    // k groups per row
+  float* s_rmax = s_red + band * ng * C;
   {
-    const int slots = kThreads / vpp;
+    const int lpr = tpr * vpp;                // threads per row
     const int v = tid & (vpp - 1);
-    const int slot = tid >> vshift;
-    float s[8], m[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j] = 0.0f;
-      m[j] = -INFINITY;
-    }
-    for (int p = slot; p < npix; p += slots) {
-      float f[8];
-      unpack8(s_x[(p << vshift) + v], f);
+    const int k = (tid >> vshift) & (tpr - 1);
+    for (int base = 0; base < nrows * lpr; base += kThreads) {  // uniform trip count
+      const int y = (base + tid) / lpr;
+      float s[8], m[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        s[j] += f[j];
-        m[j] = fmaxf(m[j], f[j]);
+        s[j] = 0.0f;
+        m[j] = -INFINITY;
       }
-    }
-    int r = slot;
-    if (vpp < 32) {  // the warp's slots hold the same channels: fold them
-      for (int o = vpp; o < 32; o <<= 1) {
+      if (y < nrows) {
+        for (int px = k; px < W; px += tpr) {
+          float f[8];
+          unpack8(s_x[((y * W + px) << vshift) + v], f);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            s[j] += f[j];
+            m[j] = fmaxf(m[j], f[j]);
+          }
+        }
+      }
+      for (int o = vpp; o < vpp * kf; o <<= 1) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           s[j] += __shfl_xor_sync(0xffffffffu, s[j], o);
           m[j] = fmaxf(m[j], __shfl_xor_sync(0xffffffffu, m[j], o));
         }
       }
-      r = warp;
-    }
-    if (vpp >= 32 || lane < vpp) {
+      if (y < nrows && (k & (kf - 1)) == 0) {
+        const int r = (y * ng + k / kf) * C + v * 8;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s_red[r * C + v * 8 + j] = s[j];
-        s_red[(rs + r) * C + v * 8 + j] = m[j];
+        for (int j = 0; j < 8; ++j) {
+          s_red[r + j] = s[j];
+          s_rmax[r + j] = m[j];
+        }
       }
     }
   }
   __syncthreads();
-  for (int c = tid; c < C; c += kThreads) {
+  for (int i = tid; i < nrows * C; i += kThreads) {  // i = y * C + c
+    const int r = (i / C) * ng * C + (i & (C - 1));
     float s = 0.0f;
     float m = -INFINITY;
-    for (int r = 0; r < rs; ++r) {
-      s += s_red[r * C + c];
-      m = fmaxf(m, s_red[(rs + r) * C + c]);
+    for (int q = 0; q < ng; ++q) {
+      s += s_red[r + q * C];
+      m = fmaxf(m, s_rmax[r + q * C]);
     }
-    s_psum[c] = s;
+    s_psum[i] = s;
+    s_rmax[r] = m;
+  }
+  __syncthreads();
+  for (int c = tid; c < C; c += kThreads) {
+    float m = -INFINITY;
+    for (int y = 0; y < nrows; ++y) m = fmaxf(m, s_rmax[y * ng * C + c]);
     s_pmax[c] = m;
   }
   cluster.sync();
 
-  // 3. every rank's partials, gathered through DSMEM by all threads at
-  // once into the slot partials' bytes, then added in rank order
-  float* s_all = s_red;
-  for (int i = tid; i < n_ranks * C; i += kThreads) {
-    const int r = i / C;
-    const int c = i - r * C;
-    s_all[i] = cluster.map_shared_rank(s_psum, r)[c];
-    s_all[n_ranks * C + i] = cluster.map_shared_rank(s_pmax, r)[c];
-  }
-  __syncthreads();
-  for (int c = tid; c < C; c += kThreads) {
-    float s = 0.0f;
-    float m = -INFINITY;
-    for (int r = 0; r < n_ranks; ++r) {
-      s += s_all[r * C + c];
-      m = fmaxf(m, s_all[(n_ranks + r) * C + c]);
+  // 3. the image's channel sums from every row's, read through DSMEM from
+  // the ranks that own them: thread (q, c) adds the rows of chunk q in
+  // order, and the chunks are added in order; the chunks are the image's,
+  // whatever the band.  The maxima are every rank's.
+  float* s_all = s_red;                       // the row partials are done with
+  {
+    const int parts = C >= kThreads ? 1 : kThreads / C;
+    const int chunk = (H + parts - 1) / parts;
+    for (int i = tid; i < parts * C; i += kThreads) {  // i = q * C + c
+      const int c = i & (C - 1);
+      const int y1 = min(H, (i / C + 1) * chunk);
+      float s = 0.0f;
+#pragma unroll 4
+      for (int y = (i / C) * chunk; y < y1; ++y) {
+        const int owner = y / band;
+        s += cluster.map_shared_rank(s_psum, owner)[(y - owner * band) * C + c];
+      }
+      s_all[i] = s;
     }
-    s_avg[c] = s / static_cast<float>(H * W);
-    s_mx[c] = m;
+    __syncthreads();
+    for (int c = tid; c < C; c += kThreads) {
+      float s = 0.0f;
+      float m = -INFINITY;
+      for (int q = 0; q < parts; ++q) s += s_all[q * C + c];
+      for (int r = 0; r < n_ranks; ++r) m = fmaxf(m, cluster.map_shared_rank(s_pmax, r)[c]);
+      s_avg[c] = s / static_cast<float>(H * W);
+      s_mx[c] = m;
+    }
   }
   __syncthreads();
-  // the gathered partials are done with: their bytes become the window
+  // the chunk sums are done with: their bytes become the window
   for (int i = tid; i < 2 * plane; i += kThreads) s_win[i] = 0.0f;
   for (int j = warp; j < hid; j += kWarps) {
     float a = 0.0f;
     float m = 0.0f;
     for (int c = lane; c < C; c += 32) {
-      const float wv = s_fc1[c * hid + j];
+      const float wv = s_fc1[j * C + c];
       a += s_avg[c] * wv;
       m += s_mx[c] * wv;
     }
@@ -343,13 +397,11 @@ cbam_cluster_kernel(const __nv_bfloat16* __restrict__ x,
   }
   __syncthreads();
 
-  // 4. per-pixel channel mean and max of x*cg: g lanes per pixel, as many
-  // as keep all threads busy; lane u takes the vectors v = u (mod g),
-  // starting at a pixel-dependent one so that neighbouring pixels read
-  // different banks
+  // 4. per-pixel channel mean and max of x*cg: g lanes per pixel; lane u
+  // takes the vectors v = u (mod g), starting at one that the pixel's
+  // place in the image picks, so that neighbouring pixels read different
+  // banks
   {
-    int g = 1;
-    while (g < vpp && g < 32 && npix * g * 2 <= kThreads) g <<= 1;
     const int per = kThreads / g;
     const int nv = vpp / g;                // vectors per lane
     const int u = tid & (g - 1);
@@ -361,7 +413,7 @@ cbam_cluster_kernel(const __nv_bfloat16* __restrict__ x,
       float m = -INFINITY;
       if (p < npix) {
         for (int j = 0; j < nv; ++j) {
-          const int v = u + g * ((j + p) & (nv - 1));
+          const int v = u + g * ((j + p + row0 * W) & (nv - 1));
           float f[8];
           unpack8(s_x[(p << vshift) + v], f);
           const float4 g0 = gate4[2 * v];
@@ -460,10 +512,9 @@ cbam_cluster_kernel(const __nv_bfloat16* __restrict__ x,
   cluster_wait();
 }
 
-// CTAs per image: the site table (or the band rule), then doubled while
-// the doubled grid still has no more CTAs than the card has SMs, so that a
-// small batch does not leave SMs idle.
-int pick_ranks(long long B, long long H, long long W, long long C, int n_sm) {
+// The site rule's CTAs per image: the site table, or the smallest power
+// of two whose band fits kBandBytes.
+int site_ranks(long long H, long long W, long long C) {
   int r = 0;
   for (const auto& s : kSiteRanks) {
     if (s[0] == H && s[1] == W && s[2] == C) r = s[3];
@@ -472,29 +523,62 @@ int pick_ranks(long long B, long long H, long long W, long long C, int n_sm) {
     r = 1;
     while (r < kMaxRanks && r < H && (H + r - 1) / r * W * C * 2 > kBandBytes) r *= 2;
   }
+  return r;
+}
+
+// CTAs per image: the site rule's, then doubled while the doubled grid
+// still has no more CTAs than the card has SMs, so that a small batch does
+// not leave SMs idle.
+int pick_ranks(long long B, long long H, long long W, long long C, int n_sm) {
+  int r = site_ranks(H, W, C);
   while (2 * B * r <= n_sm && 2 * r <= kMaxRanks && 2 * r <= H) r *= 2;
   return r;
 }
 
+// Step 2's threads per row and vector: about 8 columns each, a power of
+// two, a row's threads within the block.
+int row_threads(long long W, long long C) {
+  int t = 1;
+  while (16LL * t <= W && 2LL * t * (C / 8) <= kThreads) t *= 2;
+  return t;
+}
+
+// Step 4's lanes per pixel: as many as keep all threads busy over a band
+// of the site rule's R, which the batch does not change.
+int pool_lanes(long long H, long long W, long long C) {
+  const long long r = site_ranks(H, W, C);
+  const long long npix = (H + r - 1) / r * W;
+  int g = 1;
+  while (g < C / 8 && g < 32 && npix * g * 2 <= kThreads) g <<= 1;
+  return g;
+}
+
 // Host state of one card, kept per device (the runtime's current device,
 // which the wrapper sets to the maps' card): its attributes are read and
-// the kernel's cluster attribute set once; the shared-memory attribute,
-// which applies to the current device only, only grows; each (R, bytes)
-// configuration's cluster occupancy is asked once, before its first launch
-// there.
+// both kernels' cluster attribute set once; a kernel's shared-memory
+// attribute, which applies to the current device only, only grows; each
+// (kernel, R, bytes) configuration's cluster occupancy is asked once,
+// before its first launch there.
 struct Placed {
-  int ranks;
+  int wdtype, ranks;
   long long smem;
   int clusters;
 };
 struct DeviceState {
   Placed placed[32];
   int n_placed;
-  long long smem_attr;
+  long long smem_attr[2];   // per weight dtype code
   int optin;
   int n_sm;
 };
 DeviceState g_devices[kMaxDevices];
+
+// the kernel that reads weights of dtype code wdtype
+const void* kernel_of(int wdtype) {
+  return wdtype == kWeightBf16
+             ? reinterpret_cast<const void*>(cbam_cluster_kernel<__nv_bfloat16>)
+             : reinterpret_cast<const void*>(cbam_cluster_kernel<float>);
+}
 
 // The current device's state, its attributes read at first use.
 int device_state(DeviceState** out) {
@@ -506,9 +590,11 @@ int device_state(DeviceState** out) {
   if (d->n_sm == 0) {
     err = cudaDeviceGetAttribute(&d->optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaFuncSetAttribute(cbam_cluster_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    for (int t = kWeightF32; t <= kWeightBf16; ++t) {
+      err = cudaFuncSetAttribute(kernel_of(t),
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
     err = cudaDeviceGetAttribute(&d->n_sm, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -517,18 +603,19 @@ int device_state(DeviceState** out) {
 }
 
 struct Config {
-  int ranks, band, clusters;
+  int ranks, band, clusters, tpr, g;
   long long smem;
 };
 
 int configure(long long B, long long H, long long W, long long C, long long hid,
-              int ranks, Config* cfg) {
+              int wdtype, int ranks, Config* cfg) {
   const long long vpp = C / 8;
   if (B < 1 || H < 1 || W < 1 || hid < 0 || C % 8 != 0 || vpp < 1
       || (vpp & (vpp - 1)) != 0 || kThreads % vpp != 0 || H * W >= (1LL << 24)
       || ranks < 0 || ranks > kMaxRanks) {
     return kErrShape;
   }
+  if (wdtype != kWeightF32 && wdtype != kWeightBf16) return kErrDtype;
   DeviceState* d = nullptr;
   const int state_err = device_state(&d);
   if (state_err != 0) return state_err;
@@ -536,19 +623,22 @@ int configure(long long B, long long H, long long W, long long C, long long hid,
   const int r = ranks > 0 ? ranks : pick_ranks(B, H, W, C, d->n_sm);
   const long long band = (H + r - 1) / r;
   if (band * W * C * 2 > d->optin) return kErrSmem;
-  const long long smem = layout(r, static_cast<int>(band), static_cast<int>(W),
-                                static_cast<int>(C), static_cast<int>(hid)).bytes;
+  const int tpr = row_threads(W, C);
+  const long long smem = layout(r, static_cast<int>(band), static_cast<int>(H),
+                                static_cast<int>(W), static_cast<int>(C),
+                                static_cast<int>(hid), tpr).bytes;
   if (smem > d->optin) return kErrSmem;
-  if (smem > d->smem_attr) {
-    err = cudaFuncSetAttribute(cbam_cluster_kernel,
+  if (smem > d->smem_attr[wdtype]) {
+    err = cudaFuncSetAttribute(kernel_of(wdtype),
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    d->smem_attr = smem;
+    d->smem_attr[wdtype] = smem;
   }
   int clusters = -1;
   for (int i = 0; i < d->n_placed; ++i) {
-    if (d->placed[i].ranks == r && d->placed[i].smem == smem) clusters = d->placed[i].clusters;
+    const Placed& p = d->placed[i];
+    if (p.wdtype == wdtype && p.ranks == r && p.smem == smem) clusters = p.clusters;
   }
   if (clusters < 0) {
     cudaLaunchConfig_t lc = {};
@@ -562,28 +652,44 @@ int configure(long long B, long long H, long long W, long long C, long long hid,
     lc.dynamicSmemBytes = static_cast<size_t>(smem);
     lc.attrs = attr;
     lc.numAttrs = 1;
-    err = cudaOccupancyMaxActiveClusters(&clusters, cbam_cluster_kernel, &lc);
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel_of(wdtype), &lc);
     if (err != cudaSuccess) return static_cast<int>(err);
-    d->placed[d->n_placed % 32] = Placed{r, smem, clusters};
+    d->placed[d->n_placed % 32] = Placed{wdtype, r, smem, clusters};
     if (d->n_placed < 32) ++d->n_placed;
   }
   if (clusters < 1) return kErrCluster;
-  *cfg = Config{r, static_cast<int>(band), clusters, smem};
+  *cfg = Config{r, static_cast<int>(band), clusters, tpr, pool_lanes(H, W, C), smem};
   return 0;
+}
+
+template <typename Wt>
+cudaError_t launch(const cudaLaunchConfig_t& lc, const void* x, const void* res,
+                   const void* fc1, const void* fc2, const void* spw, long long sc,
+                   long long sy, long long sx, void* out, long long H,
+                   long long W, long long C, long long hid, const Config& cfg) {
+  return cudaLaunchKernelEx(
+      &lc, cbam_cluster_kernel<Wt>, static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(res), static_cast<const Wt*>(fc1),
+      static_cast<const Wt*>(fc2), static_cast<const Wt*>(spw),
+      static_cast<int>(sc), static_cast<int>(sy), static_cast<int>(sx),
+      static_cast<__nv_bfloat16*>(out),
+      static_cast<int>(H), static_cast<int>(W), static_cast<int>(C),
+      static_cast<int>(hid), cfg.band, cfg.tpr, cfg.g);
 }
 
 }  // namespace
 
 // The cluster configuration of a batch of B (H, W, C) maps: CTAs per
 // image, shared-memory bytes per CTA, and how many such clusters the card
-// holds at once.  ranks = 0 takes the kernel's own choice; any other value
-// exists only for cli/mfu_experiments --cluster-sweep.
+// holds at once, for weights of dtype code wdtype.  ranks = 0 takes the
+// kernel's own choice; any other value exists only for
+// cli/mfu_experiments --cluster-sweep.
 extern "C" int cbam_fuse_config(long long B, long long H, long long W,
-                                long long C, long long hid, int ranks,
-                                int* out_ranks, long long* out_smem,
-                                int* out_clusters) {
+                                long long C, long long hid, int wdtype,
+                                int ranks, int* out_ranks,
+                                long long* out_smem, int* out_clusters) {
   Config cfg;
-  const int err = configure(B, H, W, C, hid, ranks, &cfg);
+  const int err = configure(B, H, W, C, hid, wdtype, ranks, &cfg);
   if (err != 0) return err;
   *out_ranks = cfg.ranks;
   *out_smem = cfg.smem;
@@ -591,13 +697,18 @@ extern "C" int cbam_fuse_config(long long B, long long H, long long W,
   return 0;
 }
 
+// fc1, fc2, spw: the convs' weights where they are stored, all of dtype
+// code wdtype; spw_sc, spw_sy, spw_sx: spw's element strides over
+// (channel, row, column).
 extern "C" int cbam_fuse_launch(const void* x, const void* res,
-                                const float* fc1, const float* fc2,
-                                const float* spw, void* out, long long B,
-                                long long H, long long W, long long C,
-                                long long hid, int ranks, void* stream) {
+                                const void* fc1, const void* fc2,
+                                const void* spw, long long spw_sc,
+                                long long spw_sy, long long spw_sx,
+                                void* out, long long B, long long H,
+                                long long W, long long C, long long hid,
+                                int wdtype, int ranks, void* stream) {
   Config cfg;
-  int err = configure(B, H, W, C, hid, ranks, &cfg);
+  int err = configure(B, H, W, C, hid, wdtype, ranks, &cfg);
   if (err != 0) return err;
   if (B * cfg.ranks >= (1LL << 31)) return kErrShape;
   cudaLaunchConfig_t lc = {};
@@ -612,11 +723,12 @@ extern "C" int cbam_fuse_launch(const void* x, const void* res,
   lc.stream = static_cast<cudaStream_t>(stream);
   lc.attrs = attr;
   lc.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(
-      &lc, cbam_cluster_kernel, static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(res), fc1, fc2, spw,
-      static_cast<__nv_bfloat16*>(out), static_cast<int>(H), static_cast<int>(W),
-      static_cast<int>(C), static_cast<int>(hid), cfg.band);
+  const cudaError_t e =
+      wdtype == kWeightBf16
+          ? launch<__nv_bfloat16>(lc, x, res, fc1, fc2, spw, spw_sc, spw_sy, spw_sx,
+                                  out, H, W, C, hid, cfg)
+          : launch<float>(lc, x, res, fc1, fc2, spw, spw_sc, spw_sy, spw_sx, out, H,
+                          W, C, hid, cfg);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

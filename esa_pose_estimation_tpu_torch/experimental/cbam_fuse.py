@@ -9,15 +9,22 @@ Bound on the card: bytes (x and residual read, the output written, bf16;
 a few dozen operations per element).  The kernel is one launch per call:
 a thread-block cluster per image, each of its R CTAs holding a band of
 ``ceil(H / R)`` rows of x in shared memory, read from device memory once.
-The CTAs combine their channel pools in rank order and exchange the halo
-rows of the pooled maps through distributed shared memory.  R per site is
+The CTAs combine their rows' channel pools in row order and exchange the
+halo rows of the pooled maps through distributed shared memory.  R per site is
 :func:`cluster_ranks` (mirrored from the ``.cu`` file: the table
 ``_SITE_RANKS``, a band rule for other shapes, and more CTAs per image
-when the batch would leave SMs idle); the wrapper allocates only the
-output.
+when the batch would leave SMs idle).  The kernel reads the convs'
+weights where they are stored, f32 masters or the bf16 serving form, and
+stages them in f32 shared memory; the wrapper allocates only the output.
 
-``models/layers.CBAM`` dispatches here when ``layers.FUSED_CBAM`` is set
-and the module is not training.  There is no autograd through it.
+Every sum is taken in an order that the site's (H, W, C) fixes, so an
+image's output does not depend on R, nor on the batch or shard it is
+served in.
+
+``models/layers.CBAM`` dispatches here by ``layers.FUSED_CBAM``'s rule
+(``layers.takes_fused_cbam``): on the card, every eval-mode bf16 forward
+that needs no gradient, with C a power of two in [8, 4096].  There is no
+autograd through it.
 """
 
 from __future__ import annotations
@@ -40,10 +47,13 @@ _SITE_RANKS = {           # kSiteRanks: (H, W, C) -> R, hrnet_esa's sites
     (8, 8, 256): 1,
     (128, 128, 64): 16,
 }
+_WEIGHT_DTYPES = {torch.float32: 0,        # kWeightF32
+                  torch.bfloat16: 1}       # kWeightBf16
 _ERRORS = {-1: 'C must be a power of two in [8, 4096] and H*W < 2^24',
            -2: 'one band of x does not fit a block\'s shared memory',
            -3: 'no cluster of this many CTAs can be placed on the card',
-           -4: 'the card\'s index is past the kernel\'s per-device table'}
+           -4: 'the card\'s index is past the kernel\'s per-device table',
+           -5: 'the weights are neither f32 nor bf16'}
 _fns: dict = {}
 
 
@@ -71,10 +81,11 @@ def _entry(name: str):
     if fn is None:
         fn = getattr(_build.load('cbam_fuse'), name)
         if name == 'cbam_fuse_launch':
-            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 5
-                           + [ctypes.c_int, ctypes.c_void_p])
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3
+                           + [ctypes.c_void_p] + [ctypes.c_longlong] * 5
+                           + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         else:
-            fn.argtypes = ([ctypes.c_longlong] * 5 + [ctypes.c_int]
+            fn.argtypes = ([ctypes.c_longlong] * 5 + [ctypes.c_int] * 2
                            + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -84,11 +95,13 @@ def _entry(name: str):
 def cluster_config(b: int, h: int, w: int, c: int, hid: int,
                    ranks: int = 0) -> dict:
     """On the card: the launch configuration of a batch of b (h, w, c)
-    maps, as ``{'ranks', 'smem_bytes', 'max_active_clusters'}``.
-    ``ranks`` = 0 takes the kernel's own choice."""
+    maps with bf16 weights (the serving form), as ``{'ranks',
+    'smem_bytes', 'max_active_clusters'}``.  ``ranks`` = 0 takes the
+    kernel's own choice."""
     r, smem, clusters = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_int()
-    err = _entry('cbam_fuse_config')(b, h, w, c, hid, ranks, ctypes.byref(r),
-                                     ctypes.byref(smem),
+    err = _entry('cbam_fuse_config')(b, h, w, c, hid,
+                                     _WEIGHT_DTYPES[torch.bfloat16], ranks,
+                                     ctypes.byref(r), ctypes.byref(smem),
                                      ctypes.byref(clusters))
     _build.check(err, 'cbam_fuse_config', _ERRORS)
     return {'ranks': r.value, 'smem_bytes': smem.value,
@@ -101,23 +114,25 @@ def cbam_plain(x: torch.Tensor, fc1: torch.Tensor, fc2: torch.Tensor,
     """f32 straight-line CBAM on NHWC maps: channel gate, spatial gate,
     optional ``relu(. + residual)``; returns ``x.dtype``.
 
-    x, residual: (B, H, W, C); fc1 (C, C/16); fc2 (C/16, C); spw (7, 7, 2)
-    with the channel-mean map first.
+    x, residual: (B, H, W, C).  The weights are the convs' own, of any
+    float dtype: fc1 ChannelAttention's first 1x1 conv (C/16, C, 1, 1),
+    fc2 its second (C, C/16, 1, 1), spw SpatialAttention's 7x7 conv
+    (1, 2, 7, 7) with the channel-mean map first.
     """
     xf = x.to(torch.float32)
     avg = xf.mean(dim=(1, 2))                          # (B, C)
     mx = xf.amax(dim=(1, 2))
-    fc1 = fc1.to(torch.float32)
-    fc2 = fc2.to(torch.float32)
+    fc1 = fc1.to(torch.float32)[:, :, 0, 0]            # (C/16, C)
+    fc2 = fc2.to(torch.float32)[:, :, 0, 0]            # (C, C/16)
 
     def mlp(v):
-        return torch.relu(v @ fc1) @ fc2
+        return torch.relu(v @ fc1.t()) @ fc2.t()
 
     cg = torch.sigmoid(mlp(avg) + mlp(mx))[:, None, None, :]
     xg = xf * cg
     s = torch.stack([xg.mean(dim=-1), xg.amax(dim=-1)], dim=1)   # (B, 2, H, W)
-    w = spw.to(torch.float32).permute(2, 0, 1)[None]             # (1, 2, 7, 7)
-    sg = torch.sigmoid(F.conv2d(s, w, padding=3))[:, 0, :, :, None]
+    sg = torch.sigmoid(F.conv2d(s, spw.to(torch.float32), padding=3)
+                       )[:, 0, :, :, None]
     out = xg * sg
     if residual is not None:
         out = torch.relu(out + residual.to(torch.float32))
@@ -130,17 +145,29 @@ def _launch(x: torch.Tensor, fc1: torch.Tensor, fc2: torch.Tensor,
     """One launch of the kernel on CUDA tensors; ``ranks`` = 0 takes the
     kernel's own cluster size.  Any other ``ranks`` is for
     ``cli/mfu_experiments --cluster-sweep`` alone, which re-derives
-    ``_SITE_RANKS`` on another card.  Counts nothing."""
+    ``_SITE_RANKS`` on another card.  The weights are passed where they
+    lie, so an in-place update is read by the next launch (and by a graph's
+    next replay).  Counts nothing."""
     if x.dim() != 4 or x.dtype != torch.bfloat16 or not x.is_contiguous():
         raise ValueError('fused_cbam: x must be a contiguous bf16 (B, H, W, C) '
                          f'tensor, got {x.dtype} {tuple(x.shape)} '
                          f'strides {x.stride()}')
     b, h, w, c = x.shape
-    hid = fc1.shape[-1]
-    if fc1.shape != (c, hid) or fc2.shape != (hid, c) or spw.shape != (7, 7, 2):
+    hid = fc1.shape[0]
+    if (fc1.shape != (hid, c, 1, 1) or fc2.shape != (c, hid, 1, 1)
+            or spw.shape != (1, 2, 7, 7)):
         raise ValueError(f'fused_cbam: weight shapes {tuple(fc1.shape)} '
                          f'{tuple(fc2.shape)} {tuple(spw.shape)} do not fit '
                          f'C={c}')
+    if (fc2.dtype != fc1.dtype or spw.dtype != fc1.dtype
+            or fc1.dtype not in _WEIGHT_DTYPES):
+        raise ValueError('fused_cbam: the weights must be all f32 or all '
+                         f'bf16, got {fc1.dtype} {fc2.dtype} {spw.dtype}')
+    if any(t.device != x.device for t in (fc1, fc2, spw)):
+        raise ValueError('fused_cbam: the weights must be on x\'s device')
+    # the 1x1 convs' rows are read as dense (out, in) matrices
+    if fc1.stride()[:2] != (c, 1) or fc2.stride()[:2] != (hid, 1):
+        raise ValueError('fused_cbam: the 1x1 conv weights must be dense')
     if residual is not None and (residual.shape != x.shape
                                  or residual.dtype != x.dtype
                                  or residual.device != x.device
@@ -151,9 +178,6 @@ def _launch(x: torch.Tensor, fc1: torch.Tensor, fc2: torch.Tensor,
             raise ValueError('fused_cbam: x and residual must be 16-byte '
                              'aligned')
     dev = x.device
-    fc1 = fc1.to(device=dev, dtype=torch.float32).contiguous()
-    fc2 = fc2.to(device=dev, dtype=torch.float32).contiguous()
-    spw = spw.to(device=dev, dtype=torch.float32).contiguous()
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
@@ -163,8 +187,8 @@ def _launch(x: torch.Tensor, fc1: torch.Tensor, fc2: torch.Tensor,
         err = _entry('cbam_fuse_launch')(
             x.data_ptr(),
             residual.data_ptr() if residual is not None else None,
-            fc1.data_ptr(), fc2.data_ptr(), spw.data_ptr(), out.data_ptr(),
-            b, h, w, c, hid, ranks,
+            fc1.data_ptr(), fc2.data_ptr(), spw.data_ptr(), *spw.stride()[1:],
+            out.data_ptr(), b, h, w, c, hid, _WEIGHT_DTYPES[fc1.dtype], ranks,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, f'fused_cbam on {dev}', _ERRORS)
     return out
@@ -176,9 +200,10 @@ def fused_cbam(x: torch.Tensor, fc1: torch.Tensor, fc2: torch.Tensor,
     """Fused CBAM on NHWC maps (the :func:`cbam_plain` function).
 
     A CUDA tensor launches the kernel once: x and residual contiguous,
-    16-byte aligned bf16 (B, H, W, C) with C a power of two in [8, 4096],
-    weights of any float type.  A CPU tensor takes the plain version.  Any
-    other device raises.
+    16-byte aligned bf16 (B, H, W, C) with C a power of two in [8, 4096];
+    the convs' weights as :func:`cbam_plain` takes them, all f32 or all
+    bf16, on x's card.  A CPU tensor takes the plain version.  Any other
+    device raises.
     """
     if x.device.type == 'cpu':
         return cbam_plain(x, fc1, fc2, spw, residual)

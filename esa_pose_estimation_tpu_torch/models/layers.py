@@ -311,11 +311,27 @@ class SpatialAttention(nn.Module):
         return torch.sigmoid(self.Conv_0(s))
 
 
-# Serving-time dispatch of CBAM to the fused kernel
-# (experimental/cbam_fuse.py).  Module-level so tests and chip_smoke.py can
-# force either path.  Default False, as in the JAX package; whether it
-# should serve by default on the card is decided by H100 measurement.
-FUSED_CBAM: bool = False
+# Dispatch of CBAM to the fused kernel (experimental/cbam_fuse.py): None
+# follows takes_fused_cbam's rule; True and False force either path
+# outside training, for tests and chip_smoke.py.
+FUSED_CBAM: bool | None = None
+
+
+def takes_fused_cbam(training: bool, device: torch.device, dtype: torch.dtype,
+                     needs_grad: bool, channels: int) -> bool:
+    """Whether a CBAM site runs as one call of the fused kernel: never in
+    training (the kernel has no autograd); else as ``FUSED_CBAM`` forces
+    it; else for a CUDA bf16 input that needs no gradient, with C a power
+    of two in [8, 4096] (the kernel's shapes; the launch raises on any
+    other fault).  Every other input runs the plain chain, CPU tensors
+    included."""
+    if training:
+        return False
+    if FUSED_CBAM is not None:
+        return FUSED_CBAM
+    return (device.type == 'cuda' and dtype == torch.bfloat16
+            and not needs_grad and 8 <= channels <= 4096
+            and channels & (channels - 1) == 0)
 
 
 class CBAM(nn.Module):
@@ -323,9 +339,10 @@ class CBAM(nn.Module):
 
     ``forward(x)`` returns the gated map (the attended stem skip);
     ``forward(x, residual)`` also applies the block tail
-    ``relu(gated + residual)`` (seg_hrnet3.py:95-97).  With ``FUSED_CBAM``
-    set and the module not training, the whole tail is one call of the
-    fused kernel's wrapper (the kernel on CUDA, its plain version on CPU).
+    ``relu(gated + residual)`` (seg_hrnet3.py:95-97).  Where
+    :func:`takes_fused_cbam` says so, the whole tail is one call of the
+    fused kernel's wrapper (the kernel on CUDA, its plain version on CPU),
+    which reads the convs' weights where they are stored.
     """
 
     def __init__(self, channels: int, dtype=torch.float32):
@@ -336,13 +353,16 @@ class CBAM(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 residual: torch.Tensor | None = None) -> torch.Tensor:
-        if FUSED_CBAM and not self.training:
+        ca = self.ChannelAttention_0
+        fc1, fc2 = ca.Conv_0.weight, ca.Conv_1.weight
+        spw = self.SpatialAttention_0.Conv_0.weight
+        needs_grad = torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, residual, fc1, fc2, spw))
+        if takes_fused_cbam(self.training, x.device, x.dtype, needs_grad,
+                            x.shape[1]):
             # the stored weights, f32 masters or the bf16 serving form, as
             # the JAX model hands its f32 parameters to the kernel
-            ca = self.ChannelAttention_0
-            fc1 = ca.Conv_0.weight[:, :, 0, 0].t()               # (C, C/16)
-            fc2 = ca.Conv_1.weight[:, :, 0, 0].t()               # (C/16, C)
-            spw = self.SpatialAttention_0.Conv_0.weight[0].permute(1, 2, 0)
             res = (None if residual is None
                    else residual.permute(0, 2, 3, 1).contiguous())
             out = fused_cbam(x.permute(0, 2, 3, 1).contiguous(), fc1, fc2,

@@ -96,11 +96,11 @@ def graph_pool(device: torch.device):
     return pool, live
 
 
-def lever_flags() -> tuple[tuple[str, bool], ...]:
-    """Whether the residual blocks run the fused-CBAM kernel
-    (``models/layers.FUSED_CBAM``), which the serving path reads while it
-    runs, and whether the recorder stamps the stages
-    (``obs/profiling.recording``): part of every key."""
+def lever_flags() -> tuple[tuple[str, bool | None], ...]:
+    """How the residual blocks pick the fused-CBAM kernel
+    (``models/layers.FUSED_CBAM``: forced on or off, or None for its rule),
+    which the serving path reads while it runs, and whether the recorder
+    stamps the stages (``obs/profiling.recording``): part of every key."""
     from esa_pose_estimation_tpu_torch.models import layers
     return (('FUSED_CBAM', layers.FUSED_CBAM),
             ('RECORDING', profiling.recorder().on))
