@@ -37,6 +37,8 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 
+from esa_pose_estimation_tpu_torch.obs import profiling
+
 
 @dataclass
 class SpeedSplits:
@@ -261,10 +263,18 @@ class BatchLoader:
 def to_device(a: np.ndarray | torch.Tensor, device) -> torch.Tensor:
     """A host array as a tensor on ``device``.  To a CUDA device it is
     copied from page-locked memory, without blocking the host; on the CPU
-    it shares the array's memory.  A tensor is moved (or kept) as it is."""
+    it shares the array's memory.  A tensor is moved (or kept) as it is.
+
+    An array's way to a card is two spans of the recorder
+    (``obs/profiling.span``): ``ingest``, the host's time to pin it and
+    enqueue the copy, and inside it ``h2d``, whose stamps on the card's
+    stream bracket the copy itself."""
     if isinstance(a, torch.Tensor):
         return a.to(device, non_blocking=True)
     t = torch.from_numpy(np.ascontiguousarray(a))
     if torch.device(device).type == 'cuda':
-        return t.pin_memory().to(device, non_blocking=True)
+        with profiling.span('ingest'):
+            pinned = t.pin_memory()
+            with profiling.span('h2d', device):
+                return pinned.to(device, non_blocking=True)
     return t

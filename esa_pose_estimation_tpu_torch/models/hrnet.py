@@ -24,6 +24,7 @@ from esa_pose_estimation_tpu_torch.models.layers import (
     BatchNorm,
     Conv,
     ConvBN,
+    SeparableConvBN,
     lecun_normal_,
     resize_bilinear,
 )
@@ -31,17 +32,18 @@ from esa_pose_estimation_tpu_torch.utils.config import HRNetConfig, StageConfig
 
 
 class BranchBlocks(nn.Module):
-    """A sequence of residual blocks forming one branch of a stage."""
+    """A sequence of blocks forming one branch of a stage.  ``block_kw``
+    go to each block (the stage config's :meth:`StageConfig.block_kw`)."""
 
     def __init__(self, block: str, num_blocks: int, cin: int, features: int,
-                 with_cbam: bool, dtype=torch.float32):
+                 with_cbam: bool, dtype=torch.float32, **block_kw):
         super().__init__()
         blk = BLOCKS[block]
         self.names = []
         for i in range(num_blocks):
             name = f'{blk.__name__}_{i}'
             self.add_module(name, blk(cin, features, with_cbam=with_cbam,
-                                      dtype=dtype))
+                                      dtype=dtype, **block_kw))
             self.names.append(name)
             cin = features * blk.expansion
 
@@ -55,25 +57,30 @@ class FuseLayer(nn.Module):
     """Cross-resolution fusion (seg_hrnet3.py:219-292).  For output branch
     i and input branch j: j > i: 1x1 conv + BN then bilinear upsample;
     j == i: identity; j < i: (i-j) strided 3x3 convs (ReLU between, none
-    on the last).  Outputs relu(sum_j path_ij(x_j)) per branch."""
+    on the last), or with ``separable`` HRFormer's (i-j) depthwise-
+    separable steps (``layers.SeparableConvBN``).  Outputs
+    relu(sum_j path_ij(x_j)) for the first ``outputs`` branches (default
+    all of them)."""
 
     def __init__(self, num_branches: int, channels: tuple[int, ...],
-                 dtype=torch.float32):
+                 dtype=torch.float32, separable: bool = False,
+                 outputs: int | None = None):
         super().__init__()
         self.dtype = dtype
         self.num_branches = num_branches
         self.channels = tuple(channels)
         self.paths: list[list[list[str]]] = []
-        n = 0
+        counts: dict[str, int] = {}
 
         def add(module):
-            nonlocal n
-            name = f'ConvBN_{n}'
+            kind = type(module).__name__
+            n = counts.get(kind, 0)
+            name = f'{kind}_{n}'
             self.add_module(name, module)
-            n += 1
+            counts[kind] = n + 1
             return name
 
-        for i in range(num_branches):
+        for i in range(num_branches if outputs is None else outputs):
             row = []
             for j in range(num_branches):
                 if j == i:
@@ -86,8 +93,11 @@ class FuseLayer(nn.Module):
                     for k in range(i - j):
                         last = k == i - j - 1
                         ch = channels[i] if last else channels[j]
-                        chain.append(add(ConvBN(channels[j], ch, 3, 2,
-                                                relu=not last, dtype=dtype)))
+                        chain.append(add(
+                            SeparableConvBN(channels[j], ch, relu=not last,
+                                            dtype=dtype) if separable else
+                            ConvBN(channels[j], ch, 3, 2, relu=not last,
+                                   dtype=dtype)))
                     row.append(chain)
             self.paths.append(row)
 
@@ -108,10 +118,13 @@ class FuseLayer(nn.Module):
 
 
 class HRModule(nn.Module):
-    """One HighResolutionModule: per-branch blocks then fusion."""
+    """One HighResolutionModule: per-branch blocks (:meth:`branches`) then
+    fusion (:meth:`fuse`).  Branch i's blocks take ``cfg.block_kw(i)``;
+    ``separable`` and ``outputs`` go to the :class:`FuseLayer`."""
 
     def __init__(self, cfg: StageConfig, in_channels: tuple[int, ...],
-                 with_cbam: bool, dtype=torch.float32):
+                 with_cbam: bool, dtype=torch.float32,
+                 separable: bool = False, outputs: int | None = None):
         super().__init__()
         blk = BLOCKS[cfg.block]
         channels = tuple(c * blk.expansion for c in cfg.num_channels)
@@ -119,17 +132,25 @@ class HRModule(nn.Module):
         for i in range(cfg.num_branches):
             self.add_module(f'BranchBlocks_{i}', BranchBlocks(
                 cfg.block, cfg.num_blocks[i], in_channels[i],
-                cfg.num_channels[i], with_cbam, dtype=dtype))
+                cfg.num_channels[i], with_cbam, dtype=dtype,
+                **cfg.block_kw(i)))
         if cfg.num_branches > 1:
             self.FuseLayer_0 = FuseLayer(cfg.num_branches, channels,
-                                         dtype=dtype)
+                                         dtype=dtype, separable=separable,
+                                         outputs=outputs)
         self.out_channels = channels
 
-    def forward(self, xs: list[torch.Tensor]) -> list[torch.Tensor]:
-        xs = [getattr(self, f'BranchBlocks_{i}')(x) for i, x in enumerate(xs)]
+    def branches(self, xs: list[torch.Tensor]) -> list[torch.Tensor]:
+        return [getattr(self, f'BranchBlocks_{i}')(x)
+                for i, x in enumerate(xs)]
+
+    def fuse(self, xs: list[torch.Tensor]) -> list[torch.Tensor]:
         if self.num_branches == 1:
             return xs
         return self.FuseLayer_0(xs)
+
+    def forward(self, xs: list[torch.Tensor]) -> list[torch.Tensor]:
+        return self.fuse(self.branches(xs))
 
 
 class Transition(nn.Module):
@@ -173,6 +194,35 @@ class Transition(nn.Module):
         return outs
 
 
+def add_stages(parent: nn.Module, stages: tuple[StageConfig, ...],
+               chans: tuple[int, ...], with_cbam: bool, dtype,
+               separable: bool = False, last_outputs: int | None = None
+               ) -> tuple[list[tuple[str, list[str]]], tuple[int, ...]]:
+    """Add each stage's ``Transition_<t>`` and its ``HRModule_<n>`` to
+    ``parent``, from the channels ``chans`` of the branches before them.
+    ``separable`` goes to every module's fusion, ``last_outputs`` to the
+    last module's (the branches it outputs).  Returns the stages' names,
+    (transition, [modules]), and the last module's channels."""
+    names, n_mod = [], 0
+    for t, st in enumerate(stages):
+        blk = BLOCKS[st.block]
+        out_channels = tuple(ch * blk.expansion for ch in st.num_channels)
+        parent.add_module(f'Transition_{t}',
+                          Transition(chans, out_channels, dtype=dtype))
+        chans = out_channels
+        mods = []
+        for m in range(st.num_modules):
+            last = t == len(stages) - 1 and m == st.num_modules - 1
+            name = f'HRModule_{n_mod}'
+            parent.add_module(name, HRModule(
+                st, chans, with_cbam, dtype=dtype, separable=separable,
+                outputs=last_outputs if last else None))
+            mods.append(name)
+            n_mod += 1
+        names.append((f'Transition_{t}', mods))
+    return names, chans
+
+
 class HRNet(nn.Module):
     """The full network: (B, H, W, in_channels) -> f32 (B, H, W, K)."""
 
@@ -191,24 +241,10 @@ class HRNet(nn.Module):
                                            c.stem_channels,
                                            s1.num_channels[0], c.with_cbam,
                                            dtype=dtype)
-        chans = (s1.num_channels[0] * BLOCKS[s1.block].expansion,)
-        self.stage_names: list[tuple[str, list[str]]] = []
-        n_mod = 0
-        for t, stage in enumerate((c.stage2, c.stage3, c.stage4)):
-            blk = BLOCKS[stage.block]
-            out_channels = tuple(ch * blk.expansion
-                                 for ch in stage.num_channels)
-            self.add_module(f'Transition_{t}',
-                            Transition(chans, out_channels, dtype=dtype))
-            chans = out_channels
-            mods = []
-            for _ in range(stage.num_modules):
-                name = f'HRModule_{n_mod}'
-                self.add_module(name, HRModule(stage, chans, c.with_cbam,
-                                               dtype=dtype))
-                mods.append(name)
-                n_mod += 1
-            self.stage_names.append((f'Transition_{t}', mods))
+        self.stage_names, chans = add_stages(
+            self, (c.stage2, c.stage3, c.stage4),
+            (s1.num_channels[0] * BLOCKS[s1.block].expansion,),
+            c.with_cbam, dtype)
         total = sum(chans)
         self.ConvBN_1 = ConvBN(total, total, c.first_head_kernel, 1,
                                dtype=dtype)

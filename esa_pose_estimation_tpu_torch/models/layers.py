@@ -216,10 +216,11 @@ class Conv(nn.Conv2d):
     model_axis = None       # a parallel.tensor_parallel.Axis, or None
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 bias: bool = False, dtype=torch.float32, dilation: int = 1):
+                 bias: bool = False, dtype=torch.float32, dilation: int = 1,
+                 groups: int = 1):
         super().__init__(cin, cout, kernel, stride=stride,
                          padding=dilation * (kernel // 2), dilation=dilation,
-                         bias=bias)
+                         groups=groups, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -228,7 +229,7 @@ class Conv(nn.Conv2d):
         axis = self.model_axis
         if axis is None:
             return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride,
-                            self.padding, self.dilation)
+                            self.padding, self.dilation, self.groups)
         y = gather_from_model(F.conv2d(
             copy_to_model(x, axis).to(dt), self.weight.to(dt), None,
             self.stride, self.padding, self.dilation), axis)
@@ -273,6 +274,30 @@ class ConvBN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.BatchNorm_0(self.Conv_0(x))
+        if self.relu:
+            x = torch.relu(x)
+        return x.to(self.dtype)
+
+
+class SeparableConvBN(nn.Module):
+    """HRFormer's downsampling step of a fusion: a depthwise 3x3 conv of
+    stride 2 + BatchNorm, then a 1x1 conv + BatchNorm [+ ReLU], no conv
+    bias (mmpose ``HRFomerModule._make_fuse_layers``), cast to the model
+    dtype."""
+
+    def __init__(self, cin: int, features: int, relu: bool = True,
+                 dtype=torch.float32):
+        super().__init__()
+        self.relu = relu
+        self.dtype = dtype
+        self.Conv_0 = Conv(cin, cin, 3, 2, dtype=dtype, groups=cin)
+        self.BatchNorm_0 = BatchNorm(cin)
+        self.Conv_1 = Conv(cin, features, 1, dtype=dtype)
+        self.BatchNorm_1 = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.BatchNorm_0(self.Conv_0(x)).to(self.dtype)
+        x = self.BatchNorm_1(self.Conv_1(x))
         if self.relu:
             x = torch.relu(x)
         return x.to(self.dtype)

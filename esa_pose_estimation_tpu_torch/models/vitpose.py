@@ -27,8 +27,10 @@ follow the published checkpoint's ``state_dict`` keys
 
 Parameters and activations are in the model's ``dtype`` (bf16 on the
 card); PyTorch's LayerNorm of bf16 keeps its statistics in f32, and flash
-attention's softmax is f32.  Attention is
-``F.scaled_dot_product_attention`` pinned to :data:`SDPA_BACKEND`.
+attention's softmax is f32.  Attention is :func:`attention`, the port's
+wrapper of ``F.scaled_dot_product_attention``, pinned to ViTPose's
+:data:`SDPA_BACKEND` (flash); HRFormer's windows go through the same
+wrapper on a backend of their own (``models/hrformer.py``).
 
 Each forward runs inside the recorder's stages (``obs/profiling.stage``)
 ``vit_encoder`` (embedding, blocks, last norm), ``attention`` (each
@@ -48,18 +50,23 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 from esa_pose_estimation_tpu_torch.obs.profiling import stage
 from esa_pose_estimation_tpu_torch.utils.config import ViTPoseConfig
 
-SDPA_BACKEND = SDPBackend.FLASH_ATTENTION
+SDPA_BACKEND = SDPBackend.FLASH_ATTENTION     # ViTPose's, on every device
 PATCH_CHANNELS = 3      # the published input channels, fed one grey crop
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              scale: float) -> torch.Tensor:
-    """softmax(q k^T scale) v over (B, heads, N, head_dim), on
-    :data:`SDPA_BACKEND` alone (an input it cannot take raises)."""
+              scale: float, backend: SDPBackend,
+              bias: torch.Tensor | None = None) -> torch.Tensor:
+    """softmax(q k^T scale + bias) v over (B, heads, N, head_dim), on the
+    caller's ``backend`` alone (an input it cannot take raises).  ``bias``
+    is added to the logits (broadcast over B: a (1, heads, N, N) table);
+    None adds nothing.  Counts its calls (``launches``) and the query
+    tokens it attended (``tokens``), whoever the caller."""
     attention.launches += 1
     attention.tokens += q.shape[0] * q.shape[2]
-    with sdpa_kernel(SDPA_BACKEND):
-        return F.scaled_dot_product_attention(q, k, v, scale=scale)
+    with sdpa_kernel(backend):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                              scale=scale)
 
 
 attention.launches = 0
@@ -92,7 +99,7 @@ class Attention(nn.Module):
         qkv = self.qkv(x).reshape(b, n, 3, self.num_heads,
                                   c // self.num_heads).permute(2, 0, 3, 1, 4)
         with stage('attention'):
-            o = attention(qkv[0], qkv[1], qkv[2], self.scale)
+            o = attention(qkv[0], qkv[1], qkv[2], self.scale, SDPA_BACKEND)
         return self.proj(o.transpose(1, 2).reshape(b, n, c))
 
 

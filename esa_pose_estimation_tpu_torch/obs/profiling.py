@@ -23,7 +23,9 @@ FLOPs summariser (main.py:42-44 timing, main.py:54-173
   (:func:`recording`): :func:`stage` marks a stage of a compiled program,
   and every call of a CUDA graph (``utils/graphs.Graphed``,
   ``train/state.StepGraph``) keeps a record of its host phases
-  (:data:`PHASES`) and of its device stamps, with no profiler running.
+  (:data:`PHASES`) and of its device stamps, with no profiler running;
+  :func:`span` marks eager work outside the graphs (a batch's copy to the
+  card), with host times and, on a card, a pair of device stamps.
 
 The recorder.  A replay of a CUDA graph emits no host range, so a
 profiler sees a graph as one launch.  Inside a capture made by
@@ -46,6 +48,13 @@ read or :meth:`Recorder.calibrate` (host ns, stamp, synchronize, host
 ns, :data:`CALIBRATION_ROUNDS` rounds), along the line fitted to them.  On
 the CPU, where a graph runs eagerly, the same records hold host
 stamps.
+
+Spans (:func:`span`) are kept apart from the calls: a host ring of
+:class:`SpanRecord` (the host ns at entry and exit) and, for a span on a
+card, a stamp ring of two stamps a span, launched eagerly on the card's
+current stream at entry and exit, so they bracket the work the span
+enqueued there (``data/speed.to_device``'s copy: ``h2d``).
+:meth:`Recorder.spans` reads them on the profiler's clock.
 """
 
 from __future__ import annotations
@@ -191,6 +200,7 @@ class MultiClassPrecisionRecall:
 # The recorder (see the module's docstring)
 
 RING_CALLS = 16_384     # calls a ring keeps: 16 MiB of stamps on a card
+SPAN_CALLS = 16_384     # spans kept: 256 KiB of stamps on a card
 RING_STAMPS = 128       # stamps a call may hold: entry, exit and stages'
 # (a ViTPose-H serving call holds 80, its 32 blocks' attention 64 of them)
 CALIBRATION_ROUNDS = 16
@@ -341,6 +351,24 @@ class CallRecord(NamedTuple):
         return self.host[i + 1] - self.host[i]
 
 
+class SpanRecord(NamedTuple):
+    """One :func:`span`, every time on the profiler's clock (ns)."""
+    seq: int         # the recorder's span number
+    name: str
+    device: str      # the card its stamps ran on, or 'cpu' (none)
+    host: tuple[int, int]           # host time at entry and at exit
+    stamps: tuple[int, int] | None  # the card's stamps at entry and exit
+
+    @property
+    def host_ns(self) -> int:
+        return self.host[1] - self.host[0]
+
+    @property
+    def device_ns(self) -> int | None:
+        return None if self.stamps is None else (self.stamps[1]
+                                                 - self.stamps[0])
+
+
 class Gap(NamedTuple):
     """A stretch in which a device ran none of the recorded calls."""
     start: int       # profiler-clock ns
@@ -452,21 +480,71 @@ class Recorder:
         self.counts: dict[int, int] = {}    # calls kept per graph
         self._target: _Stamps | None = None
         self.host_offset = time.time_ns() - time.perf_counter_ns()
+        self.span_records: list = [None] * SPAN_CALLS
+        self.span_seq = 0                   # spans kept so far
 
-    def ring(self, device: torch.device) -> _Ring:
+    def ring(self, device: torch.device, spans: bool = False) -> _Ring:
         """``device``'s ring, made (and on a card calibrated) at first
-        use: before a capture begins, never inside one."""
+        use: before a capture begins, never inside one.  ``spans``: its
+        ring of :func:`span` stamps (two a span)."""
         if device.type == 'cuda' and device.index is None:
             device = torch.device('cuda', torch.cuda.current_device())
         key = ((device.type, device.index) if device.type == 'cuda'
-               else ('cpu', None))
+               else ('cpu', None)) + (('spans',) if spans else ())
         ring = self.rings.get(key)
         if ring is None:
-            ring = self.rings[key] = _Ring(device, self.capacity,
-                                           self.stride)
+            ring = self.rings[key] = (
+                _Ring(device, SPAN_CALLS, 2) if spans
+                else _Ring(device, self.capacity, self.stride))
             if ring.cuda:
                 ring.calibrate(self.host_offset)
         return ring
+
+    @contextlib.contextmanager
+    def span(self, name: str, device=None):
+        """:func:`span`'s record: host ns at entry and exit, and with a
+        CUDA ``device`` its stamps on the current stream."""
+        if not self.on:
+            yield
+            return
+        dev = None if device is None else torch.device(device)
+        ring = self.ring(dev, spans=True) if (
+            dev is not None and dev.type == 'cuda') else None
+        slot = None if ring is None else ring.issued
+        h0 = time.perf_counter_ns()
+        if ring is not None:
+            ring.stamp(0)
+        yield
+        if ring is not None:
+            ring.stamp(1, advance=True)
+        h1 = time.perf_counter_ns()
+        self.span_records[self.span_seq % SPAN_CALLS] = (
+            self.span_seq, name, ring, slot, (h0, h1))
+        self.span_seq += 1
+
+    def spans(self, name: str | None = None) -> list[SpanRecord]:
+        """The spans kept (those named ``name``), oldest first.  Waits for
+        the work queued on the cards and takes one more calibration point
+        on each; a span whose stamps were written over since has none."""
+        kept = sorted((r for r in self.span_records if r is not None
+                       and (name is None or r[1] == name)),
+                      key=lambda r: r[0])
+        if any(r[2] is not None for r in kept):
+            self.calibrate()
+        read: dict = {}
+        out = []
+        for seq, label, ring, slot, host in kept:
+            pair = None
+            if ring is not None and ring.issued - slot <= ring.calls:
+                if id(ring) not in read:
+                    read[id(ring)] = ring.read()
+                base = (slot % ring.calls) * ring.stride
+                pair = tuple(ring.to_profiler(read[id(ring)][base:base + 2],
+                                              self.host_offset))
+            out.append(SpanRecord(
+                seq, label, 'cpu' if ring is None else str(ring.device),
+                tuple(t + self.host_offset for t in host), pair))
+        return out
 
     def new_graph(self) -> int:
         self.graphs += 1
@@ -644,6 +722,15 @@ class recording:
     def __exit__(self, *exc) -> bool:
         _RECORDER.on = self.prev
         return False
+
+
+def span(name: str, device=None):
+    """Eager work of the program outside its graphs, as a context manager:
+    the recorder keeps its host time, and for a CUDA ``device`` a stamp
+    before and after the work it enqueues on that card's current stream
+    (:meth:`Recorder.spans`).  A span that raises keeps nothing; with the
+    recorder off nothing is kept."""
+    return _RECORDER.span(name, device)
 
 
 @contextlib.contextmanager

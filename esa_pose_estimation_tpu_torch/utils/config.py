@@ -23,6 +23,26 @@ class StageConfig:
     block: str = 'BASIC'            # 'BASIC' | 'BOTTLENECK'
     fuse_method: str = 'SUM'
 
+    def block_kw(self, branch: int) -> dict:
+        """Keyword arguments of branch ``branch``'s blocks besides their
+        widths: none for HRNet's residual blocks."""
+        return {}
+
+
+@dataclass(frozen=True)
+class HRFormerStageConfig(StageConfig):
+    """A stage of HRFormer blocks: each branch's attention heads, the
+    square window and the FFN's expansion besides.  The HRNet configs keep
+    :class:`StageConfig`, field for field the JAX package's."""
+    block: str = 'HRFORMER'
+    num_heads: tuple[int, ...] = ()
+    window_size: int = 7
+    mlp_ratio: int = 4
+
+    def block_kw(self, branch: int) -> dict:
+        return dict(num_heads=self.num_heads[branch],
+                    window_size=self.window_size, mlp_ratio=self.mlp_ratio)
+
 
 @dataclass(frozen=True)
 class HRNetConfig:
@@ -117,6 +137,58 @@ def vitpose_tiny() -> ViTPoseConfig:
     blocks of four heads of 16, 16x16 heatmaps of 8 keypoints."""
     return ViTPoseConfig(num_keypoints=8, img_size=64, embed_dim=64,
                          depth=2, num_heads=4, head_channels=(32, 32))
+
+
+@dataclass(frozen=True)
+class HRFormerConfig:
+    """HRFormer (Yuan et al., "HRFormer: High-Resolution Transformer for
+    Dense Prediction", NeurIPS 2021, arXiv:2110.09408; mmpose's
+    ``hrformer_base_coco_384x288.py``): a two-conv stride-4 stem, stage 1
+    of Bottlenecks, then stages 2-4 of HRNet's multi-resolution modules
+    whose branches are HRFormer blocks (window self-attention, depthwise-
+    conv FFN), fused with depthwise-separable downsampling, and a 1x1 conv
+    to the heatmaps on the highest-resolution branch, at 1/4 of the input.
+    Defaults: HRFormer-B's widths at the port's crop and keypoints
+    (:func:`hrformer_b_speed`)."""
+    num_keypoints: int = 30
+    img_size: int = 512
+    stem_channels: int = 64
+    stage1: StageConfig = StageConfig(1, 1, (2,), (64,), 'BOTTLENECK')
+    stage2: HRFormerStageConfig = HRFormerStageConfig(
+        1, 2, (2, 2), (78, 156), num_heads=(2, 4))
+    stage3: HRFormerStageConfig = HRFormerStageConfig(
+        4, 3, (2, 2, 2), (78, 156, 312), num_heads=(2, 4, 8))
+    stage4: HRFormerStageConfig = HRFormerStageConfig(
+        2, 4, (2, 2, 2, 2), (78, 156, 312, 624), num_heads=(2, 4, 8, 16))
+
+    @property
+    def stages(self) -> tuple[StageConfig, ...]:
+        return (self.stage1, self.stage2, self.stage3, self.stage4)
+
+
+def hrformer_b_speed() -> HRFormerConfig:
+    """HRFormer-B at every published width (channels 78, 156, 312, 624;
+    heads 2, 4, 8, 16 of 39; 7x7 windows; MLP x4; 1, 4, 2 modules of 2
+    blocks a branch: 44 blocks) on SPEED's grey 512x512 crops with 30
+    keypoints: branches of 128, 64, 32 and 16 pixels a side, 128x128
+    heatmaps (stride 4), the shape the peak decode reads."""
+    return HRFormerConfig()
+
+
+def hrformer_tiny() -> HRFormerConfig:
+    """Small HRFormer for tests: 64x64 crops, heads of 39 kept, one module
+    of one block a branch, branches of 16, 8, 4 and 2 pixels a side (none
+    a multiple of 7, so every window pads), 16x16 heatmaps of 8
+    keypoints."""
+    return HRFormerConfig(
+        num_keypoints=8, img_size=64, stem_channels=16,
+        stage1=StageConfig(1, 1, (1,), (16,), 'BOTTLENECK'),
+        stage2=HRFormerStageConfig(1, 2, (1, 1), (39, 78), num_heads=(1, 2),
+                                   mlp_ratio=2),
+        stage3=HRFormerStageConfig(1, 3, (1, 1, 1), (39, 78, 117),
+                                   num_heads=(1, 2, 3), mlp_ratio=2),
+        stage4=HRFormerStageConfig(1, 4, (1, 1, 1, 1), (39, 78, 117, 156),
+                                   num_heads=(1, 2, 3, 4), mlp_ratio=2))
 
 
 @dataclass(frozen=True)
